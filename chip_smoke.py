@@ -8,17 +8,36 @@ Run from a checkout of the repository:
 Phases, each of which raises on a failed check:
 
 1. Environment: torch, CUDA, the card's name and power limit; builds every
-   CUDA kernel from ``pyvisim_tpu_torch/csrc`` with nvcc.
-2. Kernel: the VLAD aggregation kernel against its plain PyTorch version
-   at the main path's shape (128 sets of 196 x 514 descriptors, K=256),
-   on margin data: labels must agree exactly, outputs to
-   1e-4 * max|ref| + 1e-5. Times both with CUDA events.
-3. Slice: the main path at full width through the public entry points,
-   ``VLADEncoder(DeepConvFeature("vgg16", 224, bf16))`` with K=256 on 128
-   images, then retrieval of 8 of them from a gallery of all 128. The
-   kernel's launch count is reset just before and read just after.
-4. f32 cross-check: 2 images encoded in float32 (cuDNN TF32 off) on the
-   card and on the CPU must agree to cosine > 0.9999.
+   CUDA kernel from ``pyvisim_tpu_torch/csrc`` with nvcc, all at once.
+2. Kernels, each against its plain PyTorch version on the card, timed
+   with CUDA events beside its bound, with a device profile:
+   a. VLAD aggregation at the main path's shape (128 sets of 196 x 514
+      descriptors, K=256), on margin data: labels must agree exactly,
+      outputs to 1e-4 * max|ref| + 1e-5;
+   b. GMM statistics with the shipped GMM-k256 on 257-D descriptors drawn
+      from it, in the Fisher-vector form (128 sets of 196, one fully
+      masked, one fractional weight) and the EM form (one set of 25,088
+      rows, with the log-likelihood to rel 1e-5): s0/s1/s2 to
+      1e-4 * max|ref| + 1e-5;
+   c. Lloyd statistics on one set of 25,088 x 514 margin rows, K=256:
+      labels exact, counts equal, sums as above, inertia to rel 1e-5.
+3. Slice 1: ``VLADEncoder(DeepConvFeature("vgg16", 224, bf16))`` with
+   K=256 on 128 images, then retrieval of 8 of them from a gallery of all
+   128.
+4. Slice 2, on the same extractor: ``FisherVectorEncoder`` with the
+   shipped GMM-k256 / PCA-257 and ``Pipeline([vlad, fv])`` encode the 128
+   images and retrieve 8 of them; one ``Pipeline.encode`` must run the
+   trunk once and launch each kernel once. Then ``learn()`` trains a
+   K-Means-256 on the 25,088 514-D descriptors and a PCA-257 + GMM-256,
+   with one kernel launch per Lloyd and EM iteration, inertia and
+   log-likelihood no worse than at their starts, and retrieval with the
+   learned vocabularies.
+5. f32 cross-check: 2 images encoded in float32 (cuDNN TF32 off) on the
+   card and on the CPU, by VLAD, Fisher vectors and the Pipeline, must
+   agree to cosine > 0.9999.
+
+Each slice resets the kernels' launch counts just before it and reads
+them just after.
 
 The last two lines of standard output are one JSON object of kernel
 numbers and ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -43,6 +62,8 @@ F32_CUDA_CORE_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
 
 B, N, D, K = 128, 196, 514, 256
+D_PCA = 257  # the shipped GMM's width: VGG16 descriptors after PCA 514 -> 257
+N_TRAIN = B * N  # descriptors of the 128 images: the training set of slice 2
 
 
 def log(*args) -> None:
@@ -102,7 +123,8 @@ def profile_device_graph(fn, reps: int = 3, top: int = 8) -> dict:
 
     events = prof.key_averages()
     kernels = sorted(
-        ((e.key, self_device_us(e)) for e in events if str(e.device_type).endswith("CUDA")),
+        ((e.key, self_device_us(e), e.count) for e in events
+         if str(e.device_type).endswith("CUDA")),
         key=lambda kv: -kv[1],
     )
     # The operator that launched each kernel, so that unnamed elementwise
@@ -112,12 +134,15 @@ def profile_device_graph(fn, reps: int = 3, top: int = 8) -> dict:
          if str(e.device_type).endswith("CPU") and e.key.startswith("aten::")),
         key=lambda kv: -kv[1],
     )
-    busy_ms = sum(us for _, us in kernels) / 1e3
+    busy_ms = sum(us for _, us, _ in kernels) / 1e3
+    # "launches" is each kernel's count in the trace: fewer than its
+    # launches per call times ``reps`` means the trace lost events.
     return {
         "window_ms_per_call": window_ms / reps,
         "kernel_ms_per_call": busy_ms / reps,
         "idle_share": max(0.0, 1.0 - busy_ms / window_ms),
-        "top": [{"kernel": k[:90], "ms_per_call": us / 1e3 / reps} for k, us in kernels[:top]],
+        "top": [{"kernel": k[:90], "ms_per_call": us / 1e3 / reps, "launches": n}
+                for k, us, n in kernels[:top]],
         "top_ops": [{"op": k, "ms_per_call": us / 1e3 / reps} for k, us in ops[:top] if us > 0],
     }
 
@@ -134,7 +159,7 @@ def phase_environment(build):
     log(
         "matmul allow_tf32=False for every phase; cuDNN allow_tf32 global="
         f"{torch.backends.cudnn.allow_tf32}, turned off by DeepConvFeature for "
-        "float32 trunks (phase 4), unused by the bf16 trunk (phase 3)"
+        "float32 trunks (phase 5), unused by the bf16 trunk (phases 3 and 4)"
     )
     names = sorted(p.stem for p in build.CSRC.glob("*.cu"))
     t0 = time.perf_counter()
@@ -190,7 +215,7 @@ def phase_kernel(agg):
         "name": "vlad_aggregate",
         "route": "cuda",
         "source": "pyvisim_tpu_torch/csrc/aggregate.cu",
-        "replaces": "pyvisim_tpu/ops/pallas/aggregate.py:115",
+        "replaces": "pyvisim_tpu/ops/pallas/aggregate.py:169",
         "replaces_function": "_vlad_kernel (vlad_aggregate_pallas)",
         "launches": None,
         "max_abs_err": max_diff,
@@ -202,6 +227,192 @@ def phase_kernel(agg):
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
         "library_ms": None,
+    }
+
+
+def bound(n_ops: int, n_bytes: int) -> dict:
+    """The least time of the card for ``n_ops`` f32 operations and
+    ``n_bytes`` moved, and which of the two bounds it."""
+    ops_ms = n_ops / F32_CUDA_CORE_FLOPS * 1e3
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    return {
+        "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "ops_gflop": n_ops / 1e9,
+        "mb": n_bytes / 1e6,
+    }
+
+
+def max_err(got, want, what: str) -> float:
+    """max|got - want|, checked against 1e-4 * max|want| + 1e-5."""
+    err = float((got - want).abs().max())
+    tol = 1e-4 * float(want.abs().max()) + 1e-5
+    log(f"  {what}: max|diff| {err:.3e} (tol {tol:.3e})")
+    check(err <= tol, f"{what} off by {err} > {tol}")
+    return err
+
+
+def shipped_gmm():
+    from pyvisim_tpu_torch.encoders import GMMWeights
+
+    gmm = GMMWeights.OXFORD102_K256_VGG16_PCA.load().to("cuda")
+    check(tuple(gmm.means.shape) == (K, D_PCA), f"shipped GMM is {tuple(gmm.means.shape)}")
+    return gmm
+
+
+def draw_from_gmm(gmm, rows: int, seed: int) -> torch.Tensor:
+    """``rows`` descriptors for ``gmm``: half drawn from it, half on the
+    segment between two components' means where their weighted densities
+    differ by a factor of e^u, u uniform in [-3, 3]. In 257 dimensions a
+    draw from one component has a one-hot posterior; the second half keeps
+    the softmax from being trivial. A row whose segment has no such point
+    is drawn from the GMM too."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    w, mu, cov = (t.cpu().double() for t in (gmm.weights, gmm.means, gmm.covariances))
+    k = w.shape[0]
+    comp = torch.multinomial(w, rows, replacement=True, generator=g)
+    x = mu[comp] + cov[comp].sqrt() * torch.randn(rows, mu.shape[1], generator=g,
+                                                  dtype=torch.float64)
+    half = rows // 2
+    a = comp[:half]
+    b = torch.multinomial(w, half, replacement=True, generator=g)
+    b = torch.where(b == a, (a + 1) % k, b)
+    delta = mu[b] - mu[a]
+    # log w_a N(x | a) - log w_b N(x | b) at x = mu_a + t * delta is
+    # c0 - A t^2 / 2 + Bq (t - 1)^2 / 2; solve it for u.
+    big_a = (delta**2 / cov[a]).sum(1)
+    big_b = (delta**2 / cov[b]).sum(1)
+    c0 = (w[a].log() - w[b].log()
+          - 0.5 * cov[a].log().sum(1) + 0.5 * cov[b].log().sum(1))
+    u = 6.0 * torch.rand(half, generator=g, dtype=torch.float64) - 3.0
+    qa, qb, qc = 0.5 * (big_b - big_a), -big_b, 0.5 * big_b + c0 - u
+    root = (qb * qb - 4 * qa * qc).clamp_min(0).sqrt()
+    roots = torch.stack([(-qb - root) / (2 * qa), (-qb + root) / (2 * qa)], dim=1)
+    inside = (roots >= 0) & (roots <= 1)
+    t = torch.where(inside[:, 0], roots[:, 0], roots[:, 1])
+    ok = inside.any(dim=1)
+    x[:half] = torch.where(ok[:, None], mu[a] + t[:, None] * delta, x[:half])
+    return x.float().cuda()
+
+
+def phase_gmm_kernel(gs, gmm):
+    """The GMM statistics kernel against its plain version, in the Fisher
+    form (a batch of sets) and the EM form (one large set)."""
+    from pyvisim_tpu_torch.ops import gmm_posteriors
+
+    params = (gmm.weights.contiguous(), gmm.means.contiguous(), gmm.covariances.contiguous())
+    k, d = gmm.means.shape
+    desc = draw_from_gmm(gmm, B * N, seed=1).reshape(B, N, d).contiguous()
+    g = torch.Generator(device="cpu").manual_seed(2)
+    mask = (torch.rand(B, N, generator=g) > 0.1).float()
+    mask[0] = 0.0  # one fully masked set
+    mask[1, 3] = 0.37  # one fractional weight
+    mask = mask.cuda()
+    got = gs.gmm_stats_batched(desc, mask, *params)
+    want = gs.gmm_stats_reference(desc, mask, *params)
+    torch.cuda.synchronize()
+    soft = int((gmm_posteriors(desc, gmm).amax(dim=-1) < 0.99).sum())
+    log(f"gmm fisher form: {soft} of {B * N} rows have a largest posterior < 0.99")
+    check(soft > 0, "every posterior is one-hot")
+    errs = [max_err(a, b, f"fisher {name}") for name, a, b in zip(("s0", "s1", "s2"), got, want)]
+    check(not any(float(t[0].abs().max()) for t in got), "fully masked set has statistics")
+    ms = cuda_ms(lambda: gs.gmm_stats_batched(desc, mask, *params))
+    plain_ms = cuda_ms(lambda: gs.gmm_stats_reference(desc, mask, *params))
+    n_valid = int((mask != 0).sum())
+    fv_bound = bound(8 * n_valid * k * d, 4 * (B * N * d + B * N + 3 * k * d + k + B * k
+                                               + 2 * B * k * d))
+    log(f"gmm fisher form: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{fv_bound['bound_ms']:.4f} ms ({fv_bound})")
+    log(json.dumps({"kernel_profile_gmm_fisher": profile_device_graph(
+        lambda: gs.gmm_stats_batched(desc, mask, *params), reps=10, top=6)}))
+
+    x = draw_from_gmm(gmm, N_TRAIN, seed=3)[None].contiguous()
+    m = torch.ones((1, N_TRAIN), device="cuda")
+    m[0, :100] = 0.0
+    got = gs.gmm_stats_batched(x, m, *params, with_ll=True)
+    want = gs.gmm_stats_reference(x, m, *params, with_ll=True)
+    torch.cuda.synchronize()
+    errs += [max_err(a, b, f"em {name}") for name, a, b in zip(("s0", "s1", "s2"), got, want)]
+    rel_ll = abs(float(got[3]) - float(want[3])) / abs(float(want[3]))
+    log(f"  em ll: kernel {float(got[3]):.6f}, plain {float(want[3]):.6f}, rel {rel_ll:.3e}")
+    check(rel_ll <= 1e-5, f"EM log-likelihood off by rel {rel_ll}")
+    em_ms = cuda_ms(lambda: gs.gmm_stats_batched(x, m, *params, with_ll=True))
+    em_plain_ms = cuda_ms(lambda: gs.gmm_stats_reference(x, m, *params, with_ll=True))
+    em_bound = bound(8 * (N_TRAIN - 100) * k * d,
+                     4 * (N_TRAIN * d + N_TRAIN + 3 * k * d + k + k + 2 * k * d + 1))
+    log(f"gmm em form: kernel {em_ms:.4f} ms, plain {em_plain_ms:.4f} ms, bound "
+        f"{em_bound['bound_ms']:.4f} ms ({em_bound})")
+    log(json.dumps({"kernel_profile_gmm_em": profile_device_graph(
+        lambda: gs.gmm_stats_batched(x, m, *params, with_ll=True), reps=10, top=8)}))
+    return {
+        "name": "gmm_stats",
+        "route": "cuda",
+        "source": "pyvisim_tpu_torch/csrc/gmm_stats.cu",
+        "replaces": "pyvisim_tpu/ops/pallas/aggregate.py:290",
+        "replaces_function": "_fisher_kernel (gmm_em_stats_pallas, fisher_stats_pallas)",
+        "launches": None,
+        "max_abs_err": max(errs),
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": fv_bound["bound_ms"],
+        "bound_by": fv_bound["bound_by"],
+        "library_ms": None,
+        "shape": f"fisher B={B} N={N} D={d} K={k}",
+        "em_ms": em_ms,
+        "em_plain_ms": em_plain_ms,
+        "em_bound_ms": em_bound["bound_ms"],
+        "em_shape": f"em N={N_TRAIN} D={d} K={k}",
+        "em_ll_rel_err": rel_ll,
+    }
+
+
+def phase_lloyd_kernel(ls):
+    """The Lloyd statistics kernel against its plain version on one set of
+    margin rows at the training shape."""
+    g = torch.Generator(device="cpu").manual_seed(4)
+    protos = torch.randn(K, D, generator=g)
+    true = torch.randint(0, K, (N_TRAIN,), generator=g)
+    true[:K] = torch.arange(K)  # every cluster populated
+    desc = (protos[true] + 0.1 * torch.randn(N_TRAIN, D, generator=g)).cuda()
+    centers = (protos + 0.01 * torch.randn(K, D, generator=g)).cuda()
+    mask = (torch.rand(N_TRAIN, generator=g) > 0.1).float()
+    mask[7] = 0.375  # one fractional weight, exact in f32 so counts compare exactly
+    mask = mask.cuda()
+    sums, counts, inertia, labels = ls.lloyd_stats(desc, mask, centers, return_labels=True)
+    r_sums, r_counts, r_inertia, r_labels = ls.lloyd_stats_reference(
+        desc, mask, centers, return_labels=True)
+    torch.cuda.synchronize()
+    mismatches = int((labels != r_labels).sum())
+    log(f"lloyd: label mismatches {mismatches}")
+    check(mismatches == 0, f"{mismatches} Lloyd labels differ from the plain argmin")
+    err = max_err(sums, r_sums, "lloyd sums")
+    check(torch.equal(counts, r_counts), "Lloyd counts differ")
+    rel = abs(float(inertia) - float(r_inertia)) / float(r_inertia)
+    log(f"  lloyd inertia: kernel {float(inertia):.6f}, plain {float(r_inertia):.6f}, rel {rel:.3e}")
+    check(rel <= 1e-5, f"Lloyd inertia off by rel {rel}")
+    ms = cuda_ms(lambda: ls.lloyd_stats(desc, mask, centers))
+    plain_ms = cuda_ms(lambda: ls.lloyd_stats_reference(desc, mask, centers))
+    n_valid = int((mask != 0).sum())
+    lb = bound(2 * n_valid * K * D + 2 * n_valid * D,
+               4 * (N_TRAIN * D + N_TRAIN + K * D + K * D + K + 1))
+    log(f"lloyd: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {lb['bound_ms']:.4f} ms ({lb})")
+    log(json.dumps({"kernel_profile_lloyd": profile_device_graph(
+        lambda: ls.lloyd_stats(desc, mask, centers), reps=10, top=6)}))
+    return {
+        "name": "lloyd_stats",
+        "route": "cuda",
+        "source": "pyvisim_tpu_torch/csrc/aggregate.cu",
+        "replaces": "pyvisim_tpu/ops/pallas/aggregate.py:93",
+        "replaces_function": "_lloyd_kernel (lloyd_stats_pallas)",
+        "launches": None,
+        "max_abs_err": err,
+        "label_mismatches": mismatches,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": lb["bound_ms"],
+        "bound_by": lb["bound_by"],
+        "library_ms": None,
+        "shape": f"N={N_TRAIN} D={D} K={K}",
     }
 
 
@@ -289,13 +500,231 @@ def phase_slice(agg):
     log(json.dumps({"profile": profile_device_graph(
         lambda: vlad_encode_batch(ext._forward(dev_images).to(torch.float32), ones, centers_dev)
     )}))
-    return launches, encode_launches, centers
+    return launches, encode_launches, centers, ext, images
+
+
+def counting(obj, name: str, counts: dict):
+    """Wrap ``obj.name`` so that ``counts[name]`` counts its calls."""
+    inner = getattr(obj, name)
+
+    def wrapper(*args, **kwargs):
+        counts[name] = counts.get(name, 0) + 1
+        return inner(*args, **kwargs)
+
+    setattr(obj, name, wrapper)
+
+
+def self_retrieval(encoder, images, n_queries: int = 8):
+    """Encode all ``images`` as a gallery; each of ``n_queries`` of them
+    must retrieve itself first. Returns the gallery vectors."""
+    from pyvisim_tpu_torch import eval as pv_eval
+
+    vectors = encoder.encode(list(images))
+    paths = [f"img_{i:03d}.png" for i in range(len(images))]
+    gallery = dict(zip(paths, vectors))
+    queries = list(range(0, len(images), len(images) // n_queries))
+    top1 = [pv_eval.retrieve_top_k_similar(images[i], gallery, encoder, k=3)[0][0]
+            for i in queries]
+    accuracy = pv_eval.top_k_accuracy(
+        [images[i] for i in queries], queries, gallery,
+        {p: i for i, p in enumerate(paths)}, encoder, k=1,
+    )
+    check(top1 == [paths[i] for i in queries], f"self-retrieval failed: {top1}")
+    check(accuracy == 1.0, f"top-1 accuracy {accuracy}")
+    return vectors
+
+
+def images_per_s(encoder, images, reps: int = 3) -> float:
+    listed = list(images)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        encoder.encode(listed)
+    return len(listed) * reps / (time.perf_counter() - t0)
+
+
+def phase_slice2(kernels, ext, centers, images):
+    """Fisher vectors, the Pipeline and vocabulary learning through the
+    public entry points, on slice 1's bf16 extractor and 128 images."""
+    from pyvisim_tpu_torch.encoders import FisherVectorEncoder, GMMWeights, Pipeline, VLADEncoder
+    from pyvisim_tpu_torch.ops import KMeansCodebook, validate_codebook
+
+    agg, gs, ls = kernels
+    fv = FisherVectorEncoder(ext, weights=GMMWeights.OXFORD102_K256_VGG16_PCA)
+    vlad = VLADEncoder(ext, kmeans_model=KMeansCodebook(centers))
+    pipe = Pipeline([vlad, fv])
+    fv.encode(list(images[:8]))  # warm the PCA and Fisher path
+    n_fv = 2 * K * D_PCA + K
+    calls = {}
+    counting(ext, "_run_trunk", calls)
+    for wrapper in (agg.vlad_aggregate_batched, gs.gmm_stats_batched, ls.lloyd_stats):
+        wrapper.launches = 0
+    torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    out = pipe.encode(list(images))
+    pipe_s = time.perf_counter() - t0
+    per_encode = {"trunk": calls.get("_run_trunk", 0), "vlad": agg.vlad_aggregate_batched.launches,
+                  "gmm_stats": gs.gmm_stats_batched.launches}
+    log(f"slice 2: one Pipeline.encode of {B} images {pipe_s * 1e3:.1f} ms, {per_encode}")
+    check(out.shape == (B, K * D + n_fv), f"Pipeline encoding shape {out.shape}")
+    check(bool(np.isfinite(out).all()), "non-finite Pipeline encodings")
+    check(per_encode == {"trunk": 1, "vlad": 1, "gmm_stats": 1},
+          f"one Pipeline.encode ran {per_encode}")
+
+    fv_vecs = self_retrieval(fv, images)
+    check(fv_vecs.shape == (B, n_fv), f"FV encoding shape {fv_vecs.shape}")
+    norms = np.linalg.norm(fv_vecs.astype(np.float64), axis=1)
+    log(f"slice 2: FV norms worst |1 - norm| {float(np.abs(norms - 1).max()):.2e}")
+    check(bool(np.abs(norms - 1.0).max() <= 1e-3), "FV norms are not 1")
+    self_retrieval(pipe, images)
+    numbers = {
+        "fv_encode_img_per_s": images_per_s(fv, images),
+        "pipeline_encode_img_per_s": images_per_s(pipe, images),
+        "pipeline_launches_per_encode": per_encode,
+    }
+
+    # Vocabulary learning on the 128 images' 25,088 descriptors.
+    learned = {}
+    for name, enc, kw in (
+        ("kmeans", VLADEncoder(ext), {}),
+        ("pca_gmm", FisherVectorEncoder(ext), {"dim_reduction_factor": 2}),
+    ):
+        history = {}
+        before = (ls.lloyd_stats.launches, gs.gmm_stats_batched.launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enc.learn(list(images), n_clusters=K, history=history, **kw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        lloyd = ls.lloyd_stats.launches - before[0]
+        em = gs.gmm_stats_batched.launches - before[1]
+        steps = history["lloyd_inertia"][0]
+        lls = history.get("em_mean_ll", [])
+        log(f"learn {name}: {seconds:.2f} s; {len(steps)} Lloyd steps ({lloyd} launches), "
+            f"inertia {steps[0]:.6g} -> {steps[-1]:.6g}; {len(lls)} EM steps ({em} launches)"
+            + (f", mean ll {lls[0]:.6g} -> {lls[-1]:.6g}" if lls else ""))
+        check(lloyd == len(steps), f"{lloyd} Lloyd launches for {len(steps)} iterations")
+        check(em == len(lls), f"{em} GMM-statistics launches for {len(lls)} EM iterations")
+        check(steps[-1] <= steps[0], "final inertia above the k-means++ centers' inertia")
+        model = enc.clustering_model
+        validate_codebook(model)
+        if lls:
+            check(lls[-1] >= lls[0], "final mean log-likelihood below the k-means start's")
+            check(abs(float(model.weights.sum()) - 1.0) <= 1e-5, "GMM weights do not sum to 1")
+            check(bool((model.covariances >= 1e-6).all()), "a covariance is below reg_covar")
+            check(enc.pca.n_components == D_PCA, f"PCA to {enc.pca.n_components}")
+            validate_codebook(enc.pca)
+        self_retrieval(enc, images)
+        if name == "kmeans":
+            vlad_learned = enc
+        else:
+            fv_learned = enc
+        learned[name] = {"seconds": seconds, "lloyd_iterations": len(steps),
+                         "em_iterations": len(lls)}
+    numbers["learn"] = learned
+    launches = {"vlad": agg.vlad_aggregate_batched.launches,
+                "gmm_stats": gs.gmm_stats_batched.launches,
+                "lloyd_stats": ls.lloyd_stats.launches}
+    check(all(launches.values()), f"slice 2 did not launch every kernel: {launches}")
+    # Measurements after the path, outside its launch counts.
+    numbers["learn_breakdown"] = learn_breakdown(ext, images, vlad_learned, fv_learned)
+    numbers.update(device_graphs(ext, images, vlad, fv))
+    log(json.dumps({"slice2": numbers, "launches": launches}))
+    return launches, numbers
+
+
+def host_ms(fn, reps: int = 5) -> float:
+    """Mean host-clock time of ``fn`` (which ends in a read-back) per call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def learn_breakdown(ext, images, vlad_learned, fv_learned) -> dict:
+    """Where ``learn()``'s time goes: extraction, k-means++ seeding, PCA,
+    and one Lloyd or EM iteration queued back to back (CUDA events) or
+    with the loop's once-per-iteration read-back (host clock)."""
+    from pyvisim_tpu_torch.ops import em_step, kmeans_plus_plus_init, lloyd_step, pca_fit
+
+    listed = list(images)
+    extract_ms = host_ms(lambda: [ext.extract_batch(listed[i:i + 64])[0].sum().item()
+                                  for i in range(0, B, 64)], reps=3)
+    desc, _ = ext.extract_batch(listed)
+    x = desc.to(torch.float32).reshape(-1, D).contiguous()
+    ones = torch.ones((x.shape[0],), device="cuda")
+    gen = torch.Generator(device="cuda")
+    seed_ms = host_ms(lambda: kmeans_plus_plus_init(gen.manual_seed(0), x, K, ones)[0, 0].item(),
+                      reps=2)
+    pca_ms = host_ms(lambda: pca_fit(x, D_PCA).components[0, 0].item(), reps=3)
+    centers = vlad_learned.clustering_model.centers
+
+    def lloyd_synced():
+        new, inertia = lloyd_step(x, ones, centers)
+        torch.stack([((new - centers) ** 2).sum(), inertia]).tolist()
+
+    xp = fv_learned.pca(x).contiguous()
+    gmm = fv_learned.clustering_model
+    out = {
+        "extract_128_ms": extract_ms,
+        "kmeans_pp_seed_ms": seed_ms,
+        "pca_fit_ms": pca_ms,
+        "lloyd_step_queued_ms": cuda_ms(lambda: lloyd_step(x, ones, centers), reps=5, rounds=5),
+        "lloyd_step_synced_ms": host_ms(lloyd_synced),
+        "em_step_queued_ms": cuda_ms(lambda: em_step(xp, ones, gmm, 1e-6), reps=5, rounds=5),
+        "em_step_synced_ms": host_ms(lambda: em_step(xp, ones, gmm, 1e-6)[1].item()),
+    }
+    log(json.dumps({"learn_breakdown": out}))
+    return out
+
+
+def device_graphs(ext, images, vlad, fv) -> dict:
+    """The FV and Pipeline device graphs on a batch already on the card:
+    trunk, PCA and Fisher vectors (and VLAD), no host copies; and the FV
+    core alone (PCA, statistics, normalisation) on its descriptors."""
+    dev_images = torch.from_numpy(images).cuda()
+    ones = torch.ones((B, N), device="cuda")
+
+    def fv_graph():
+        return fv._encode_core(ext._forward(dev_images), ones, fv.clustering_model, fv.pca)
+
+    def pipeline_graph():
+        desc = ext._forward(dev_images)
+        return (vlad._encode_core(desc, ones, vlad.clustering_model, None),
+                fv._encode_core(desc, ones, fv.clustering_model, fv.pca))
+
+    with torch.inference_mode():
+        dev_desc = ext._forward(dev_images)
+        fv_core_ms = cuda_ms(lambda: fv._encode_core(dev_desc, ones, fv.clustering_model, fv.pca),
+                             reps=5, rounds=5)
+        fv_ms = cuda_ms(fv_graph, reps=3, rounds=5)
+        pipe_ms = cuda_ms(pipeline_graph, reps=3, rounds=5)
+        log(json.dumps({"profile_pipeline": profile_device_graph(pipeline_graph, top=10)}))
+    out = {
+        "fv_encode_core_ms": fv_core_ms,
+        "fv_device_graph_ms": fv_ms,
+        "fv_device_graph_img_per_s": B / fv_ms * 1e3,
+        "pipeline_device_graph_ms": pipe_ms,
+        "pipeline_device_graph_img_per_s": B / pipe_ms * 1e3,
+    }
+    log(json.dumps({"device_graphs": out}))
+    return out
+
+
+def cosine_rows(a, b) -> np.ndarray:
+    a, b = a.astype(np.float64), b.astype(np.float64)
+    return (a * b).sum(1) / (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1))
 
 
 def phase_f32_crosscheck(centers):
     """float32 on the card (TF32 off) against the port on the CPU, both
-    with the default seed-0 weights."""
-    from pyvisim_tpu_torch.encoders import VLADEncoder
+    with the default seed-0 weights: VLAD, Fisher vectors (shipped
+    GMM-k256 / PCA-257) and the Pipeline of both."""
+    from pyvisim_tpu_torch.encoders import FisherVectorEncoder, GMMWeights, Pipeline, VLADEncoder
     from pyvisim_tpu_torch.features import DeepConvFeature
     from pyvisim_tpu_torch.ops import KMeansCodebook
 
@@ -303,11 +732,16 @@ def phase_f32_crosscheck(centers):
     vecs = {}
     for device in ("cuda", "cpu"):
         ext = DeepConvFeature("vgg16", image_size=224, device=device)
-        vecs[device] = VLADEncoder(ext, kmeans_model=KMeansCodebook(centers)).encode(images)
-    a, b = vecs["cuda"].astype(np.float64), vecs["cpu"].astype(np.float64)
-    cos = (a * b).sum(1) / (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1))
-    log(f"f32 card vs cpu: cosine {cos.tolist()}, max|diff| {float(np.abs(a - b).max()):.3e}")
-    check(bool((cos > 0.9999).all()), f"float32 card and CPU encodings disagree: {cos}")
+        vlad = VLADEncoder(ext, kmeans_model=KMeansCodebook(centers))
+        fv = FisherVectorEncoder(ext, weights=GMMWeights.OXFORD102_K256_VGG16_PCA)
+        vecs[device] = {"vlad": vlad.encode(images), "fv": fv.encode(images),
+                        "pipeline": Pipeline([vlad, fv]).encode(images)}
+    for name in ("vlad", "fv", "pipeline"):
+        a, b = vecs["cuda"][name], vecs["cpu"][name]
+        cos = cosine_rows(a, b)
+        log(f"f32 card vs cpu, {name}: cosine {cos.tolist()}, "
+            f"max|diff| {float(np.abs(a.astype(np.float64) - b).max()):.3e}")
+        check(bool((cos > 0.9999).all()), f"float32 card and CPU {name} encodings disagree: {cos}")
 
 
 def main() -> int:
@@ -317,16 +751,29 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     from pyvisim_tpu_torch.ops.cuda import _build
     from pyvisim_tpu_torch.ops.cuda import aggregate as agg
+    from pyvisim_tpu_torch.ops.cuda import gmm_stats as gs
+    from pyvisim_tpu_torch.ops.cuda import lloyd_stats as ls
 
     t0 = time.perf_counter()
     phase_environment(_build)
     kernel = phase_kernel(agg)
-    launches, encode_launches, centers = phase_slice(agg)
+    gmm_kernel = phase_gmm_kernel(gs, shipped_gmm())
+    lloyd_kernel = phase_lloyd_kernel(ls)
+    launches, encode_launches, centers, ext, images = phase_slice(agg)
     kernel["launches"] = launches
     kernel["launches_per_encode_of_128"] = encode_launches
+    launches2, numbers2 = phase_slice2((agg, gs, ls), ext, centers, images)
+    kernel["launches_slice2"] = launches2["vlad"]
+    gmm_kernel["launches"] = launches2["gmm_stats"]
+    gmm_kernel["launches_per_pipeline_encode_of_128"] = (
+        numbers2["pipeline_launches_per_encode"]["gmm_stats"])
+    gmm_kernel["launches_per_learn"] = numbers2["learn"]["pca_gmm"]["em_iterations"]
+    lloyd_kernel["launches"] = launches2["lloyd_stats"]
+    lloyd_kernel["launches_per_learn"] = {
+        name: rec["lloyd_iterations"] for name, rec in numbers2["learn"].items()}
     phase_f32_crosscheck(centers)
     log(f"total {time.perf_counter() - t0:.1f} s")
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": [kernel, gmm_kernel, lloyd_kernel]}))
     print(json.dumps({
         "ok": True,
         "device": {

@@ -1,8 +1,9 @@
 """pyvisim_tpu_torch — the PyTorch/CUDA port of pyvisim_tpu.
 
-The same image-similarity library (deep-feature and VLAD encoders,
-cosine retrieval and its evaluation) in PyTorch, with the JAX package's
-TPU kernels rewritten as CUDA kernels for Hopper. The module layout
+The same image-similarity library (deep features, VLAD and Fisher-vector
+encoders and their Pipeline, on-device vocabulary learning with K-Means,
+GMM and PCA, cosine retrieval and its evaluation) in PyTorch, with the JAX
+package's TPU kernels rewritten as CUDA kernels for Hopper. The module layout
 follows ``pyvisim_tpu`` so that each counterpart is found by name.
 
 Entry points run on CUDA unless given ``device="cpu"``; without a card

@@ -1,7 +1,9 @@
-// VLAD residual aggregation for a batch of descriptor sets, for Hopper (sm_90a).
+// Nearest-centroid aggregation for Hopper (sm_90a): VLAD residuals for a
+// batch of descriptor sets, and the Lloyd (k-means) statistics of one set.
 //
-// Replaces the TPU kernel pyvisim_tpu/ops/pallas/aggregate.py:_vlad_kernel
-// (wrapped there by vlad_aggregate_pallas). For each set b of the batch:
+// vlad_aggregate_f32 replaces the TPU kernel
+// pyvisim_tpu/ops/pallas/aggregate.py:_vlad_kernel (wrapped there by
+// vlad_aggregate_pallas). For each set b of the batch:
 //
 //   label_n  = argmin_k ||x_n - c_k||^2        (lowest k wins a tie)
 //   out[b,k] = sum_n m_n [label_n = k] x_n - (sum_n m_n [label_n = k]) c_k
@@ -33,10 +35,25 @@
 //      the weight of cluster k is summed by thread k % COLS. No atomics, so
 //      results repeat bit for bit. The epilogue writes acc - count * c.
 // The (N, K) distance block never reaches device memory, as on the TPU.
+//
+// lloyd_stats_f32 replaces pyvisim_tpu/ops/pallas/aggregate.py:_lloyd_kernel
+// (lloyd_stats_pallas), the statistics of one k-means (Lloyd) step on one
+// (N, D) set: labels, (K, D) sums and (K,) counts of masked rows, and the
+// inertia sum_n m_n max(||x_n||^2 + min_k(||c_k||^2 - 2 x_n.c_k), 0). It runs
+// the same passes: the assignment pass also sums ||x||^2 (in its first
+// center tile) and writes each row's clamped squared distance; the
+// accumulation pass takes row segments of one set in place of whole sets, so
+// that one large set fills the card (25,088 rows: 25 segments x 5 column
+// slices at D=514), and writes per-segment partials; reduce.cuh sums them and
+// the masked distances in a fixed order. The work is 2*N*K*D flops (6.6
+// GFLOP at N=25,088, D=514, K=256, ~0.1 ms at the f32 rate) against 51.6 MB
+// of descriptors in, so it is bound by operations, as the VLAD pass is.
 
 #include <cuda_runtime.h>
 
 #include <math.h>
+
+#include "reduce.cuh"
 
 namespace {
 
@@ -89,10 +106,13 @@ __device__ __forceinline__ void store_tiles(float (*xs)[kRowTile + 4],
   }
 }
 
+// With WITH_ERR the pass also writes err[r] = max(||x_r||^2 + best, 0), the
+// squared distance to the nearest center, clamped as the TPU kernel does.
+template <bool WITH_ERR>
 __global__ void __launch_bounds__(kAssignThreads)
 assign_kernel(const float* __restrict__ desc, const float* __restrict__ centers,
               const float* __restrict__ c2, int* __restrict__ labels,
-              int rows, int D, int K) {
+              float* __restrict__ err, int rows, int D, int K) {
   // Two stages of transposed tiles, [stage][depth][row or center], padded by
   // 4 floats so a tile row stays 16-byte aligned for the float4 reads. The
   // next depth slice is loaded into registers while this one is multiplied.
@@ -104,12 +124,13 @@ assign_kernel(const float* __restrict__ desc, const float* __restrict__ centers,
   const int row0 = blockIdx.x * kRowTile;
   const int n_depth = (D + kDepthTile - 1) / kDepthTile;
 
-  float best[4];
+  float best[4], x2[4];
   int best_k[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     best[i] = INFINITY;
     best_k[i] = 0;
+    x2[i] = 0.f;
   }
 
   float xr[kStagePerThread], cr[kStagePerThread];
@@ -137,6 +158,10 @@ assign_kernel(const float* __restrict__ desc, const float* __restrict__ centers,
         for (int i = 0; i < 4; ++i)
 #pragma unroll
           for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+        if (WITH_ERR && k0 == 0) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) x2[i] = fmaf(av[i], av[i], x2[i]);
+        }
       }
       // The other stage was last read before the previous barrier.
       if (more) store_tiles(xs[cur ^ 1], cs[cur ^ 1], xr, cr);
@@ -178,16 +203,24 @@ assign_kernel(const float* __restrict__ desc, const float* __restrict__ centers,
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = row0 + ty * 4 + i;
-      if (r < rows) labels[r] = best_k[i];
+      if (r < rows) {
+        labels[r] = best_k[i];
+        if (WITH_ERR) err[r] = fmaxf(x2[i] + best[i], 0.f);
+      }
     }
   }
 }
 
-template <int COLS>
+// Block b owns rows [b * seg, min((b + 1) * seg, rows)): a whole set for
+// VLAD (seg = N), a segment of the one set for Lloyd. With RESIDUAL it
+// writes acc - count * c to out (B, K, D); without, it writes acc to out
+// and, from the first column slice, the counts to counts_out (S, K).
+template <int COLS, bool RESIDUAL>
 __global__ void __launch_bounds__(COLS)
 accumulate_kernel(const float* __restrict__ desc, const float* __restrict__ mask,
                   const float* __restrict__ centers, const int* __restrict__ labels,
-                  float* __restrict__ out, int N, int D, int K) {
+                  float* __restrict__ out, float* __restrict__ counts_out, int rows, int seg,
+                  int D, int K) {
   extern __shared__ __align__(16) float smem[];
   float* acc = smem;                   // K * COLS
   float* counts = acc + K * COLS;      // K
@@ -202,9 +235,11 @@ accumulate_kernel(const float* __restrict__ desc, const float* __restrict__ mask
   for (int k = 0; k < K; ++k) acc[k * COLS + t] = 0.f;
   for (int k = t; k < K; k += COLS) counts[k] = 0.f;
 
-  const float* xb = desc + static_cast<size_t>(b) * N * D + col;
-  const float* mb = mask + static_cast<size_t>(b) * N;
-  const int* lb = labels + static_cast<size_t>(b) * N;
+  const size_t row0 = static_cast<size_t>(b) * seg;
+  const int N = min(seg, static_cast<int>(rows - row0));
+  const float* xb = desc + row0 * D + col;
+  const float* mb = mask + row0;
+  const int* lb = labels + row0;
 
   for (int n0 = 0; n0 < N; n0 += kStageLen) {
     const int len = min(kStageLen, N - n0);
@@ -239,13 +274,16 @@ accumulate_kernel(const float* __restrict__ desc, const float* __restrict__ mask
     }
   }
   __syncthreads();
+  if (!RESIDUAL && blockIdx.y == 0)
+    for (int k = t; k < K; k += COLS) counts_out[static_cast<size_t>(b) * K + k] = counts[k];
   if (!active) return;
   float* ob = out + static_cast<size_t>(b) * K * D + col;
   const float* cb = centers + col;
 #pragma unroll 8
   for (int k = 0; k < K; ++k) {
     ob[static_cast<size_t>(k) * D] =
-        fmaf(-counts[k], __ldg(cb + static_cast<size_t>(k) * D), acc[k * COLS + t]);
+        RESIDUAL ? fmaf(-counts[k], __ldg(cb + static_cast<size_t>(k) * D), acc[k * COLS + t])
+                 : acc[k * COLS + t];
   }
 }
 
@@ -253,18 +291,48 @@ size_t accumulate_smem_bytes(int cols, int K) {
   return (static_cast<size_t>(K) * cols + K + 2 * kStageLen) * sizeof(float);
 }
 
-template <int COLS>
+template <int COLS, bool RESIDUAL>
 cudaError_t launch_accumulate(const float* desc, const float* mask, const float* centers,
-                              const int* labels, float* out, int B, int N, int D, int K,
-                              cudaStream_t stream) {
+                              const int* labels, float* out, float* counts_out, int rows,
+                              int seg, int D, int K, cudaStream_t stream) {
   const size_t smem = accumulate_smem_bytes(COLS, K);
-  cudaError_t err = cudaFuncSetAttribute(accumulate_kernel<COLS>,
+  cudaError_t err = cudaFuncSetAttribute(accumulate_kernel<COLS, RESIDUAL>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid(B, (D + COLS - 1) / COLS);
-  accumulate_kernel<COLS><<<grid, COLS, smem, stream>>>(desc, mask, centers, labels, out,
-                                                        N, D, K);
+  const dim3 grid((rows + seg - 1) / seg, (D + COLS - 1) / COLS);
+  accumulate_kernel<COLS, RESIDUAL><<<grid, COLS, smem, stream>>>(
+      desc, mask, centers, labels, out, counts_out, rows, seg, D, K);
+  return cudaGetLastError();
+}
+
+template <bool RESIDUAL>
+cudaError_t accumulate(const float* desc, const float* mask, const float* centers,
+                       const int* labels, float* out, float* counts_out, int rows, int seg,
+                       int D, int K, int cols, cudaStream_t stream) {
+  switch (cols) {
+    case 128:
+      return launch_accumulate<128, RESIDUAL>(desc, mask, centers, labels, out, counts_out,
+                                              rows, seg, D, K, stream);
+    case 64:
+      return launch_accumulate<64, RESIDUAL>(desc, mask, centers, labels, out, counts_out,
+                                             rows, seg, D, K, stream);
+    case 32:
+      return launch_accumulate<32, RESIDUAL>(desc, mask, centers, labels, out, counts_out,
+                                             rows, seg, D, K, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <bool WITH_ERR>
+cudaError_t assign(const float* desc, const float* centers, float* c2, int* labels, float* err,
+                   int rows, int D, int K, cudaStream_t stream) {
+  center_sqnorm_kernel<<<K, 32, 0, stream>>>(centers, c2, D);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  assign_kernel<WITH_ERR><<<(rows + kRowTile - 1) / kRowTile, kAssignThreads, 0, stream>>>(
+      desc, centers, c2, labels, err, rows, D, K);
   return cudaGetLastError();
 }
 
@@ -296,22 +364,38 @@ int vlad_aggregate_f32(const float* desc, const float* mask, const float* center
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  center_sqnorm_kernel<<<K, 32, 0, stream>>>(centers, c2, D);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const int rows = B * N;
-  assign_kernel<<<(rows + kRowTile - 1) / kRowTile, kAssignThreads, 0, stream>>>(
-      desc, centers, c2, labels, rows, D, K);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  switch (vlad_accumulate_cols(K, device)) {
-    case 128:
-      return launch_accumulate<128>(desc, mask, centers, labels, out, B, N, D, K, stream);
-    case 64:
-      return launch_accumulate<64>(desc, mask, centers, labels, out, B, N, D, K, stream);
-    case 32:
-      return launch_accumulate<32>(desc, mask, centers, labels, out, B, N, D, K, stream);
-    default:
-      return cudaErrorInvalidValue;
+  if ((err = assign<false>(desc, centers, c2, labels, nullptr, rows, D, K, stream)) != cudaSuccess)
+    return err;
+  return accumulate<true>(desc, mask, centers, labels, out, nullptr, rows, N, D, K,
+                          vlad_accumulate_cols(K, device), stream);
+}
+
+// Lloyd statistics of one (N, D) set in segments of seg rows (S of them).
+// c2 (K), labels (N), err (N) are caller-allocated scratch. With S > 1,
+// part_sums (S, K, D) and part_counts (S, K) are scratch too; with S == 1
+// they must be sums and counts themselves.
+int lloyd_stats_f32(const float* desc, const float* mask, const float* centers, float* c2,
+                    int* labels, float* err, float* part_sums, float* part_counts,
+                    float* sums, float* counts, float* inertia, int N, int D, int K, int seg,
+                    int device, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  if ((e = assign<true>(desc, centers, c2, labels, err, N, D, K, stream)) != cudaSuccess) return e;
+  if ((e = accumulate<false>(desc, mask, centers, labels, part_sums, part_counts, N, seg, D, K,
+                             vlad_accumulate_cols(K, device), stream)) != cudaSuccess)
+    return e;
+  const int S = (N + seg - 1) / seg;
+  if (S > 1) {
+    if ((e = launch_reduce_partials(part_sums, sums, 1, S, static_cast<long long>(K) * D,
+                                    stream)) != cudaSuccess)
+      return e;
+    if ((e = launch_reduce_partials(part_counts, counts, 1, S, K, stream)) != cudaSuccess)
+      return e;
   }
+  masked_row_sum_kernel<<<1, kReduceThreads, 0, stream>>>(err, mask, inertia, N);
+  return cudaGetLastError();
 }
 
 }  // extern "C"

@@ -1,5 +1,14 @@
-"""Encoder API (port of ``pyvisim_tpu/encoders``, VLAD for now)."""
+"""Encoder API (port of ``pyvisim_tpu/encoders``)."""
 from ._base_encoder import GMMWeights, ImageEncoderBase, KMeansWeights
+from .fisher_vector import FisherVectorEncoder
+from .pipeline import Pipeline
 from .vlad import VLADEncoder
 
-__all__ = ["VLADEncoder", "KMeansWeights", "GMMWeights", "ImageEncoderBase"]
+__all__ = [
+    "VLADEncoder",
+    "FisherVectorEncoder",
+    "Pipeline",
+    "KMeansWeights",
+    "GMMWeights",
+    "ImageEncoderBase",
+]

@@ -1,10 +1,11 @@
 """Encoder API base: weights registry, validation, and the shared engine.
 
-Port of ``pyvisim_tpu/encoders/_base_encoder.py`` for the main path:
-encoders hold codebooks of tensors (``ops/codebooks.py``) on their
-device, and ``encode`` runs extract -> PCA -> aggregate -> normalise on
-the whole batch at once. Vocabulary learning, the multi-device paths and
-the encoding maps come with later slices.
+Port of ``pyvisim_tpu/encoders/_base_encoder.py``: encoders hold
+codebooks of tensors (``ops/codebooks.py``) on their device, ``encode``
+runs extract -> PCA -> aggregate -> normalise on the whole batch at once,
+and ``learn`` trains the PCA and the K-Means or GMM vocabulary on the
+device. The multi-device paths and the encoding maps come with later
+slices.
 """
 from __future__ import annotations
 
@@ -24,6 +25,9 @@ from .._config import MODEL_FILES_PATH, get_logger, resolve_device
 from .._errors import WeightsNotFoundError
 from .._utils import cosine_similarity
 from ..ops import codebooks as cb
+from ..ops import gmm as gmm_ops
+from ..ops import kmeans as kmeans_ops
+from ..ops import pca as pca_ops
 
 logger = get_logger("encoders")
 
@@ -402,6 +406,90 @@ class ImageEncoderBase(SimilarityMetric):
         with torch.inference_mode():
             out = self._encode_core(desc, mask, self._clustering_model, self._pca)
         return out.cpu().numpy()
+
+    def learn(
+        self,
+        images: Iterable[np.ndarray],
+        /,
+        *,
+        n_clusters: int,
+        dim_reduction_factor: int | None = None,
+        batch_size: int = 64,
+        max_descriptors: int | None = None,
+        seed: int = 0,
+        **kwargs,
+    ) -> None:
+        """Learn the visual vocabulary (PCA + K-Means/GMM) from images on
+        the encoder's device.
+
+        Images stream through the extractor in ``batch_size`` chunks;
+        ``max_descriptors`` caps the training set by sampling valid rows of
+        each batch with ``np.random.default_rng(seed)``, as the JAX package
+        does, so both train on the same rows of the same descriptors. With
+        ``dim_reduction_factor`` a PCA to ``dim // dim_reduction_factor``
+        is fitted on the raw descriptors first. ``kwargs`` go to
+        ``kmeans_fit`` or ``gmm_fit``.
+        """
+        if isinstance(images, np.ndarray) and images.ndim == 3:
+            images = [images]
+        images = list(images) if not isinstance(images, np.ndarray) else images
+        n_batches = max(1, -(-len(images) // batch_size))
+        per_batch_cap = (
+            None if max_descriptors is None else max(1, max_descriptors // n_batches)
+        )
+        rng = np.random.default_rng(seed)
+        desc_parts, mask_parts = [], []
+        for start in range(0, len(images), batch_size):
+            d_b, m_b = self.feature_extractor.extract_batch(
+                images[start : start + batch_size]
+            )
+            d_b = torch.as_tensor(d_b, device=self.device).to(torch.float32)
+            d_b = d_b.reshape(-1, d_b.shape[-1])
+            m_b = torch.as_tensor(m_b, device=self.device).to(torch.float32).reshape(-1)
+            n_valid = int(torch.count_nonzero(m_b))
+            if n_valid == 0:
+                continue  # nothing to learn from in this batch
+            if per_batch_cap is not None and d_b.shape[0] > per_batch_cap:
+                # Sample among valid rows only, on the host generator.
+                m_np = m_b.cpu().numpy()
+                idx = rng.choice(
+                    d_b.shape[0],
+                    size=min(per_batch_cap, n_valid),
+                    replace=False,
+                    p=m_np / m_np.sum(),
+                )
+                idx = torch.as_tensor(idx, device=self.device)
+                d_b, m_b = d_b[idx], m_b[idx]
+            desc_parts.append(d_b)
+            mask_parts.append(m_b)
+        if not desc_parts:
+            raise RuntimeError(
+                "learn(): no valid descriptors were extracted from any batch; "
+                "cannot train a vocabulary"
+            )
+        flat = torch.cat(desc_parts)
+        flat_mask = torch.cat(mask_parts)
+        logger.info(
+            "Learning visual vocabulary: n_clusters=%d extractor=%s dim=%d",
+            n_clusters,
+            type(self.feature_extractor).__name__,
+            flat.shape[1],
+        )
+        if dim_reduction_factor:
+            projector = pca_ops.pca_fit(
+                flat, flat.shape[1] // dim_reduction_factor, mask=flat_mask,
+                device=self.device,
+            )
+            self._pca = projector
+            flat = projector(flat)
+        if self._vocabulary_kind == "kmeans":
+            fit = kmeans_ops.kmeans_fit
+        elif self._vocabulary_kind == "gmm":
+            fit = gmm_ops.gmm_fit
+        else:
+            raise ValueError("Unknown encoder class.")
+        model, _ = fit(flat, n_clusters, mask=flat_mask, device=self.device, **kwargs)
+        self._clustering_model = model
 
     def similarity_score(
         self,

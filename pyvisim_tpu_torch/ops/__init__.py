@@ -1,7 +1,8 @@
 """pyvisim_tpu_torch.ops — functional compute cores in PyTorch.
 
-Port of ``pyvisim_tpu/ops`` for the main path (deep features -> VLAD ->
-retrieval). The TPU kernel on that path is a CUDA kernel in ``ops/cuda``.
+Port of ``pyvisim_tpu/ops`` for deep features -> VLAD / Fisher vectors ->
+retrieval and vocabulary training. The TPU kernels on those paths are CUDA
+kernels in ``ops/cuda``.
 """
 from .codebooks import (
     GmmCodebook,
@@ -11,10 +12,14 @@ from .codebooks import (
     save_codebook,
     validate_codebook,
 )
-from .assign import nearest_centroid, pairwise_sqdist
+from .assign import gmm_log_prob, gmm_posteriors, nearest_centroid, pairwise_sqdist
 from .norms import lp_norm, lp_normalize, power_normalize
 from .vlad import vlad_aggregate, vlad_encode, vlad_encode_batch
+from .fisher import fisher_encode, fisher_encode_batch, fisher_stats
 from .similarity import cosine_similarity_matrix, pairwise_euclidean
+from .kmeans import kmeans_fit, kmeans_plus_plus_init, lloyd_step
+from .gmm import em_step, gmm_fit
+from .pca import pca_fit, projector_from_moments
 
 __all__ = [
     "GmmCodebook",
@@ -23,6 +28,8 @@ __all__ = [
     "load_codebook",
     "save_codebook",
     "validate_codebook",
+    "gmm_log_prob",
+    "gmm_posteriors",
     "nearest_centroid",
     "pairwise_sqdist",
     "lp_norm",
@@ -31,6 +38,16 @@ __all__ = [
     "vlad_aggregate",
     "vlad_encode",
     "vlad_encode_batch",
+    "fisher_encode",
+    "fisher_encode_batch",
+    "fisher_stats",
     "cosine_similarity_matrix",
     "pairwise_euclidean",
+    "kmeans_fit",
+    "kmeans_plus_plus_init",
+    "lloyd_step",
+    "em_step",
+    "gmm_fit",
+    "pca_fit",
+    "projector_from_moments",
 ]

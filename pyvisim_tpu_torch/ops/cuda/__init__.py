@@ -1,9 +1,10 @@
 """Hand-written CUDA kernels for Hopper and their plain PyTorch versions.
 
-Each kernel's source is ``pyvisim_tpu_torch/csrc/<name>.cu``; it is built
-by ``nvcc`` at first use (see ``_build``). A wrapper takes its plain
-version for CPU tensors and launches the kernel for CUDA tensors.
+Each kernel's source is in ``pyvisim_tpu_torch/csrc``; it is built by
+``nvcc`` at first use (see ``_build``). Each module holds a kernel's
+wrapper, its launch count and its plain version: the wrapper takes the
+plain version for CPU tensors and launches the kernel for CUDA tensors.
 """
-from .aggregate import vlad_aggregate_batched, vlad_aggregate_reference
+from . import aggregate, gmm_stats, lloyd_stats
 
-__all__ = ["vlad_aggregate_batched", "vlad_aggregate_reference"]
+__all__ = ["aggregate", "gmm_stats", "lloyd_stats"]

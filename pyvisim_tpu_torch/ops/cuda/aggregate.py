@@ -18,6 +18,7 @@ bit for bit. See the source for the three passes.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 import torch.nn.functional as F
@@ -26,6 +27,17 @@ from ..assign import nearest_centroid
 from ._build import load_library
 
 __all__ = ["vlad_aggregate_reference", "vlad_aggregate_batched"]
+
+# Rows of one set that one block of a statistics pass sums; the Lloyd and
+# GMM kernels cut a longer set into segments and add their partials in order.
+_SEGMENT = 1024
+_MAX_SEGMENTS = 256
+
+
+def segment_rows(n: int) -> int:
+    """Rows per segment of an ``n``-row set: whole sets up to ``_SEGMENT``
+    rows, else enough that there are at most ``_MAX_SEGMENTS``."""
+    return max(_SEGMENT, math.ceil(n / _MAX_SEGMENTS))
 
 
 def vlad_aggregate_reference(
@@ -43,16 +55,29 @@ def vlad_aggregate_reference(
     return (out, labels) if return_labels else out
 
 
-def _check(desc, mask, centers) -> None:
-    for name, t in (("desc", desc), ("mask", mask), ("centers", centers)):
+def check_kernel_inputs(**tensors) -> None:
+    """Each tensor must be float32, contiguous and on the first one's
+    device, as a kernel reads them; raises ``TypeError``/``ValueError``."""
+    first_name, first = next(iter(tensors.items()))
+    for name, t in tensors.items():
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a torch.Tensor, got {type(t)}")
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if t.device != desc.device:
-            raise ValueError(f"{name} is on {t.device}, desc on {desc.device}")
+        if t.device != first.device:
+            raise ValueError(f"{name} is on {t.device}, {first_name} on {first.device}")
+
+
+def launch_target(device: torch.device) -> tuple[int, int]:
+    """The CUDA device index and current stream handle for a launch."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return index, torch.cuda.current_stream(device).cuda_stream
+
+
+def _check(desc, mask, centers) -> None:
+    check_kernel_inputs(desc=desc, mask=mask, centers=centers)
     if desc.dim() != 3 or mask.shape != desc.shape[:2]:
         raise ValueError(
             f"expected desc (B, N, D) and mask (B, N); got {tuple(desc.shape)} "
@@ -70,6 +95,8 @@ def _library() -> ctypes.CDLL:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.vlad_aggregate_f32.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
         lib.vlad_aggregate_f32.restype = i32
+        lib.lloyd_stats_f32.argtypes = [ptr] * 11 + [i32] * 5 + [ptr]
+        lib.lloyd_stats_f32.restype = i32
         lib.vlad_accumulate_cols.argtypes = [i32, i32]
         lib.vlad_accumulate_cols.restype = i32
         lib.vlad_error_string.argtypes = [i32]
@@ -103,11 +130,10 @@ def vlad_aggregate_batched(
         out.zero_()
         return (out, labels) if return_labels else out
     lib = _library()
-    dev = desc.device.index if desc.device.index is not None else torch.cuda.current_device()
+    dev, stream = launch_target(desc.device)
     if lib.vlad_accumulate_cols(k, dev) == 0:
         raise ValueError(f"K={k} centers do not fit the kernel's shared-memory accumulator")
     c2 = torch.empty((k,), dtype=torch.float32, device=desc.device)
-    stream = torch.cuda.current_stream(desc.device).cuda_stream
     err = lib.vlad_aggregate_f32(
         desc.data_ptr(), mask.data_ptr(), centers.data_ptr(), c2.data_ptr(),
         labels.data_ptr(), out.data_ptr(), b, n, d, k, dev, stream,

@@ -92,3 +92,34 @@ def test_encoder_and_similarity_default_device_raise_without_cuda(no_cuda):
         VLADEncoder(ext, kmeans_model=centers, device="cuda")
     # the extractor's device is inherited when the encoder is given none
     assert VLADEncoder(ext, kmeans_model=centers).device.type == "cpu"
+
+
+def test_fisher_encoder_and_pipeline_default_device_raise_without_cuda(no_cuda):
+    from pyvisim_tpu_torch.encoders import FisherVectorEncoder, Pipeline, VLADEncoder
+    from pyvisim_tpu_torch.features import DeepConvFeature
+    from pyvisim_tpu_torch.ops import GmmCodebook, KMeansCodebook
+
+    ext = DeepConvFeature(image_size=32, layer_index=0, device="cpu")
+    d = ext.output_dim
+    gmm = GmmCodebook(weights=np.ones(2, np.float32) / 2, means=np.zeros((2, d), np.float32),
+                      covariances=np.ones((2, d), np.float32))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FisherVectorEncoder(ext, gmm_model=gmm, device="cuda")
+    with pytest.raises(TypeError, match="feature_extractor"):
+        FisherVectorEncoder(gmm_model=gmm, device="cpu")
+    fv = FisherVectorEncoder(ext, gmm_model=gmm)
+    vlad = VLADEncoder(ext, kmeans_model=KMeansCodebook(np.zeros((2, d), np.float32)))
+    assert fv.device.type == "cpu"
+    # the Pipeline's default similarity runs on its first encoder's device
+    sims = Pipeline([fv, vlad]).similarity_func(np.ones((1, 4)), np.ones((2, 4)))
+    assert sims.shape == (1, 2)
+
+
+@pytest.mark.parametrize("fit", ["kmeans_fit", "gmm_fit", "pca_fit"])
+def test_fits_default_device_raises_without_cuda(no_cuda, fit):
+    from pyvisim_tpu_torch import ops
+
+    x = np.random.default_rng(0).normal(size=(40, 3)).astype(np.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        getattr(ops, fit)(x, 2)
+    assert getattr(ops, fit)(x, 2, device="cpu") is not None
