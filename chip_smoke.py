@@ -21,6 +21,14 @@ Phases, each of which raises on a failed check:
       1e-4 * max|ref| + 1e-5;
    c. Lloyd statistics on one set of 25,088 x 514 margin rows, K=256:
       labels exact, counts equal, sums as above, inertia to rel 1e-5.
+   d. The SIFT kernels (refinement, orientation, descriptor) on the
+      arguments one 16-image device call of the SIFT core at the default
+      SiftConfig() gives them (process size 512, 2048 keypoints), at two
+      loads: the main path's 384x512 structured images (a sixth of the
+      keypoint budget valid) and 1/f-noise images that fill the budget:
+      refinement ok flags and positions equal and offsets to 1e-5, angles
+      to 1e-5 rad and second-peak flags equal, descriptors within 1 unit
+      and exact on >= 99 % of entries; each kernel's two calls bit-equal.
 3. Slice 1: ``VLADEncoder(DeepConvFeature("vgg16", 224, bf16))`` with
    K=256 on 128 images, then retrieval of 8 of them from a gallery of all
    128.
@@ -35,6 +43,14 @@ Phases, each of which raises on a failed check:
 5. f32 cross-check: 2 images encoded in float32 (cuDNN TF32 off) on the
    card and on the CPU, by VLAD, Fisher vectors and the Pipeline, must
    agree to cosine > 0.9999.
+6. Slice 3: ``VLADEncoder(weights=KMeansWeights.OXFORD102_K256_ROOTSIFT)``
+   with its default RootSIFT and ``Pipeline([vlad, fv])`` with the shipped
+   GMM-k256/PCA-64 encode 64 structured 384x512 images (four 16-image SIFT
+   calls, one extraction for the Pipeline) and retrieve 8 of them; VLAD
+   norms sqrt(non-empty clusters), FV norms 1, and the expected launches
+   of every SIFT, VLAD and GMM kernel per encode. Prints encode img/s,
+   the SIFT core's device ms by stage (on these images and on images that
+   fill the keypoint budget) and the host letterbox's ms.
 
 Each slice resets the kernels' launch counts just before it and reads
 them just after.
@@ -92,11 +108,13 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def structured_images(rng, n: int, size: int = 224) -> np.ndarray:
-    """uint8 images of random 8x8 colour blocks plus noise; unlike pure
-    noise, they give distinct deep features, so retrieval is meaningful."""
+def structured_images(rng, n: int, size: int | tuple[int, int] = 224) -> np.ndarray:
+    """uint8 images (square ``size`` or ``(height, width)``) of random 8x8
+    colour blocks plus noise; unlike pure noise, they give distinct deep
+    features and SIFT keypoints, so retrieval is meaningful."""
+    h, w = (size, size) if isinstance(size, int) else size
     grid = rng.integers(0, 256, size=(n, 8, 8, 3))
-    up = np.repeat(np.repeat(grid, size // 8, axis=1), size // 8, axis=2)
+    up = np.repeat(np.repeat(grid, h // 8, axis=1), w // 8, axis=2)
     return np.clip(up + rng.normal(0, 12, size=up.shape), 0, 255).astype(np.uint8)
 
 
@@ -744,6 +762,393 @@ def phase_f32_crosscheck(centers):
         check(bool((cos > 0.9999).all()), f"float32 card and CPU {name} encodings disagree: {cos}")
 
 
+SIFT_BATCH = 16  # images per SIFT device call (PYVISIM_SIFT_DEVICE_BATCH)
+SIFT_IMAGES = 64  # slice 3's gallery
+SIFT_HW = (384, 512)
+
+
+def sift_gray_batch(n: int, seed: int):
+    """``n`` structured RGB images at 384x512 and their letterboxed uint8
+    grayscale at the default process size."""
+    from pyvisim_tpu_torch.features._features import _to_gray_u8
+    from pyvisim_tpu_torch.ops import sift as sift_ops
+
+    images = structured_images(np.random.default_rng(seed), n, SIFT_HW)
+    grays = np.stack([sift_ops._letterbox(_to_gray_u8(im), sift_ops.SiftConfig().process_size)
+                      for im in images])
+    return images, grays
+
+
+def full_budget_grays(n: int, seed: int) -> np.ndarray:
+    """``n`` letterboxed uint8 grayscale 384x512 images of 1/f noise,
+    whose detail at every scale fills the default keypoint budget: the
+    most work one SIFT call can give its kernels."""
+    from pyvisim_tpu_torch.ops import sift as sift_ops
+
+    rng = np.random.default_rng(seed)
+    h, w = SIFT_HW
+    f2 = np.fft.fftfreq(h)[:, None] ** 2 + np.fft.fftfreq(w)[None, :] ** 2
+    f2[0, 0] = 1.0
+    grays = []
+    for _ in range(n):
+        spec = (rng.normal(size=(h, w)) + 1j * rng.normal(size=(h, w))) / np.sqrt(f2)
+        x = np.fft.ifft2(spec).real
+        x = np.clip(128 + 48 * (x - x.mean()) / x.std(), 0, 255).astype(np.uint8)
+        grays.append(sift_ops._letterbox(x, sift_ops.SiftConfig().process_size))
+    return np.stack(grays)
+
+
+def capture_kernel_calls(kernels, run) -> dict:
+    """The arguments of every SIFT kernel call ``run()`` makes."""
+    names = ("refine", "orientation", "descriptor")
+    calls = {name: [] for name in names}
+    saved = {name: getattr(kernels, name) for name in names}
+
+    def recorder(name):
+        def wrapped(*args, **kwargs):
+            calls[name].append((args, kwargs))
+            return saved[name](*args, **kwargs)
+        # A wrapper counts its launches on the module attribute of its name.
+        wrapped.launches = saved[name].launches
+        return wrapped
+
+    try:
+        for name in names:
+            setattr(kernels, name, recorder(name))
+        run()
+    finally:
+        for name in names:
+            saved[name].launches = getattr(kernels, name).launches
+            setattr(kernels, name, saved[name])
+    return calls
+
+
+def same_bits(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def phase_sift_kernels(kernels):
+    """Kernels A (refinement), B (orientation) and C (descriptor) against
+    their plain versions on the card, on the arguments one 16-image device
+    call of the SIFT core at the default SiftConfig() gives them: the main
+    path's images, then images that fill the keypoint budget. The records
+    hold the main path's numbers, and the full budget's under
+    ``full_budget``."""
+    from pyvisim_tpu_torch.ops import sift as sift_ops
+
+    cfg = sift_ops.SiftConfig()
+    loads = {"main path": sift_gray_batch(SIFT_BATCH, seed=0)[1],
+             "full budget": full_budget_grays(SIFT_BATCH, seed=0)}
+    records = []
+    for load, grays in loads.items():
+        batch = torch.from_numpy(grays).cuda()
+        with torch.inference_mode():
+            calls = capture_kernel_calls(kernels, lambda: sift_ops._sift_core(batch, cfg))
+            torch.cuda.synchronize()
+            records.append([check_refine(kernels, calls["refine"], load),
+                            check_orientation(kernels, calls["orientation"], load),
+                            check_descriptor(kernels, calls["descriptor"], load)])
+    main, full = records
+    for rec, other in zip(main, full):
+        rec["full_budget"] = {key: other[key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "shape")}
+    return main
+
+
+def time_calls(fn, calls, **kw) -> float:
+    """CUDA-event ms of ``fn`` over all ``calls`` (one device call's worth)."""
+    return cuda_ms(lambda: [fn(*a, **k) for a, k in calls], **kw)
+
+
+def check_refine(kernels, calls, load: str) -> dict:
+    """Per octave: ok flags and positions equal, offsets and contrast to
+    1e-5 (the kernel repeats the plain version's f32 operations, so 0 is
+    expected), two kernel calls bit-equal."""
+    n_cand = n_ok = fits_total = 0
+    err = 0.0
+    for args, kw in calls:
+        got = kernels.refine(*args, **kw)
+        again = kernels.refine(*args, **kw)
+        want, fits = kernels.refine_reference(*args, **kw, return_steps=True)
+        torch.cuda.synchronize()
+        check(same_bits(got, again), "refinement kernel does not repeat bit for bit")
+        check(torch.equal(got.ok, want.ok), f"{int((got.ok != want.ok).sum())} ok flags differ")
+        for name in ("layer", "row", "col"):
+            check(torch.equal(getattr(got, name), getattr(want, name)), f"refined {name} differs")
+        for name in ("xr", "xc", "xi", "contrast"):
+            err = max(err, float((getattr(got, name) - getattr(want, name)).abs().max()))
+        n_cand += int(args[5].sum())
+        n_ok += int(got.ok.sum())
+        fits_total += int(fits.sum())
+    check(err <= 1e-5, f"refined offsets off by {err}")
+    ms = time_calls(kernels.refine, calls)
+    plain_ms = time_calls(kernels.refine_reference, calls, reps=3, rounds=5)
+    n_rows = sum(args[5].numel() for args, _ in calls)
+    # Each fit reads the 19 DoG values of its stencils and does ~100 f32
+    # operations; each row reads 17 bytes and writes 29.
+    b = bound(100 * fits_total, 19 * 4 * fits_total + 46 * n_rows)
+    log(f"sift refine ({load}): {len(calls)} launches per call, {n_cand} valid of {n_rows} candidates, "
+        f"{n_ok} kept, {fits_total} fits; max|diff| {err:.3e}; kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b})")
+    return {
+        "name": "sift_refine", "route": "cuda",
+        "source": "pyvisim_tpu_torch/csrc/sift_window.cu",
+        "replaces": "pyvisim_tpu/ops/pallas/sift_window.py:855",
+        "replaces_function": "_refine_gather_kernel (refine_gather_pass) + _refine_candidates",
+        "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": b["bound_ms"], "bound_by": b["bound_by"], "library_ms": None,
+        "launches_per_16_image_call": len(calls),
+        "shape": f"{n_rows} candidates over {len(calls)} octaves, {n_cand} valid, {n_ok} kept",
+    }
+
+
+def window_pixels(kw, radius_f) -> int:
+    """Window pixels of the valid keypoints of one orientation call, each
+    at min(class radius, radius_f)."""
+    rad = torch.minimum(kw["radius"], radius_f.to(torch.int32))[kw["valid"]].to(torch.int64)
+    return int(((2 * rad + 1) ** 2).sum())
+
+
+def check_orientation(kernels, calls, load: str) -> dict:
+    """theta to 1e-5 rad where the keypoint is valid, theta2 where both
+    find a second peak, has_second equal, two kernel calls bit-equal."""
+    (args, kw), = calls
+    got = kernels.orientation(*args, **kw)
+    again = kernels.orientation(*args, **kw)
+    want = kernels.orientation_reference(*args, **kw)
+    torch.cuda.synchronize()
+    check(same_bits(got, again), "orientation kernel does not repeat bit for bit")
+    valid = kw["valid"]
+    mismatched = int((got[2] != want[2]).sum())
+    check(mismatched == 0, f"has_second differs on {mismatched} keypoints")
+    err = float((got[0] - want[0])[valid].abs().max())
+    if got[2].any():
+        err = max(err, float((got[1] - want[1])[got[2]].abs().max()))
+    check(err <= 1e-5, f"orientation off by {err} rad")
+    ms = time_calls(kernels.orientation, calls)
+    plain_ms = time_calls(kernels.orientation_reference, calls, reps=1, rounds=3, warmup=1)
+    n = valid.numel()
+    pix = window_pixels(kw, torch.round(4.5 * kw["scl"]))
+    atlas_bytes = kw["atlas"].element_size() * 2
+    b = bound(10 * pix, atlas_bytes * pix + 29 * n + 9 * n)
+    log(f"sift orientation ({load}): {int(valid.sum())} valid of {n}, {int(got[2].sum())} second peaks, "
+        f"{pix} window pixels; max|diff| {err:.3e} rad; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b})")
+    return {
+        "name": "sift_orientation", "route": "cuda",
+        "source": "pyvisim_tpu_torch/csrc/sift_window.cu",
+        "replaces": "pyvisim_tpu/ops/pallas/sift_window.py:775",
+        "replaces_function": "_ori_kernel (orientation_window_pass)",
+        "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": b["bound_ms"], "bound_by": b["bound_by"], "library_ms": None,
+        "launches_per_16_image_call": len(calls),
+        "shape": f"{n} keypoints, {int(valid.sum())} valid, {pix} window pixels",
+    }
+
+
+def descriptor_pixels(kw) -> tuple[int, int]:
+    """Window pixels of the valid keypoints of one descriptor call, and how
+    many of them lie in the image and in the keypoint's rotated 4x4 region
+    (-1 < rbin, cbin < 4): only those add histogram terms and need their
+    atlas values. The same coordinates as the kernel's and its twin's."""
+    valid = kw["valid"]
+    hist_width = 3.0 * kw["scl"][valid]
+    radius_f = torch.round(hist_width * 1.4142135623730951 * 5.0 * 0.5)
+    rad = torch.minimum(kw["radius"][valid], radius_f.to(torch.int32))
+    cos_t = torch.cos(kw["theta"][valid]) / hist_width
+    sin_t = torch.sin(kw["theta"][valid]) / hist_width
+    row, col = kw["row"][valid], kw["col"][valid]
+    octave = kw["octave"][valid].long()
+    h, w = kw["octaves"][octave, 1], kw["octaves"][octave, 2]
+    window = inside = 0
+    for r in torch.unique(rad).tolist():
+        d = torch.arange(-r, r + 1, device=rad.device, dtype=torch.float32)
+        ii, jj = d.repeat_interleave(2 * r + 1), d.repeat(2 * r + 1)
+        for idx in torch.nonzero(rad == r)[:, 0].split(4096):
+            ct, st = cos_t[idx, None], sin_t[idx, None]
+            rbin = jj * st + ii * ct + 1.5
+            cbin = jj * ct - ii * st + 1.5
+            rr, cc = row[idx, None] + ii, col[idx, None] + jj
+            ok = ((rbin > -1.0) & (rbin < 4.0) & (cbin > -1.0) & (cbin < 4.0)
+                  & (rr >= 1) & (rr < h[idx, None] - 1) & (cc >= 1) & (cc < w[idx, None] - 1))
+            window += idx.numel() * (2 * r + 1) ** 2
+            inside += int(ok.sum())
+    return window, inside
+
+
+def check_descriptor(kernels, calls, load: str) -> dict:
+    """Descriptors within 1 unit everywhere and exact on >= 99 % of the
+    valid keypoints' entries (the plain version sums its histogram in
+    another f32 order), two kernel calls bit-equal."""
+    (args, kw), = calls
+    got = kernels.descriptor(*args, **kw)
+    again = kernels.descriptor(*args, **kw)
+    want = kernels.descriptor_reference(*args, **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(got, again), "descriptor kernel does not repeat bit for bit")
+    valid = kw["valid"]
+    diff = (got - want).abs()
+    err = float(diff.max())
+    exact = float((diff[valid] == 0).float().mean())
+    check(err <= 1.0, f"descriptors differ by {err} units")
+    check(exact >= 0.99, f"only {exact:.4f} of descriptor entries are exact")
+    ms = time_calls(kernels.descriptor, calls)
+    plain_ms = time_calls(kernels.descriptor_reference, calls, reps=1, rounds=3, warmup=1)
+    n = valid.numel()
+    pix, inside = descriptor_pixels(kw)
+    atlas_bytes = kw["atlas"].element_size() * 2
+    # ~20 operations per window pixel for its rotated bin coordinates and
+    # weight; ~10 for each of the 8 histogram terms of a pixel inside the
+    # region, whose magnitude and angle are read; 33 bytes in and 512 out
+    # per row.
+    b = bound(20 * pix + 80 * inside, atlas_bytes * inside + 33 * n + 512 * n)
+    log(f"sift descriptor ({load}): {int(valid.sum())} valid of {n}, {pix} window pixels, "
+        f"{inside} inside the region; max|diff| "
+        f"{err:.1f}, exact {exact:.6f}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{b['bound_ms']:.4f} ms ({b})")
+    return {
+        "name": "sift_descriptor", "route": "cuda",
+        "source": "pyvisim_tpu_torch/csrc/sift_window.cu",
+        "replaces": "pyvisim_tpu/ops/pallas/sift_window.py:569",
+        "replaces_function": "_desc_kernel_gang / _desc_kernel (descriptor_window_pass)",
+        "launches": None, "max_abs_err": err, "exact_share": exact, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+        "library_ms": None, "launches_per_16_image_call": len(calls),
+        "shape": f"{n} keypoints, {int(valid.sum())} valid, {pix} window pixels, "
+                 f"{inside} inside the region",
+    }
+
+
+def sift_stage_ms(grays) -> dict:
+    """Device ms of one 16-image SIFT core call by stage (CUDA events at
+    its stage marks), median of 5 calls."""
+    from pyvisim_tpu_torch.ops import sift as sift_ops
+
+    cfg = sift_ops.SiftConfig()
+    batch = torch.from_numpy(grays[:SIFT_BATCH]).cuda()
+    runs = []
+    with torch.inference_mode():
+        for _ in range(6):
+            events = [("start", torch.cuda.Event(enable_timing=True))]
+            events[0][1].record()
+
+            def mark(name):
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                events.append((name, ev))
+
+            sift_ops._sift_core(batch, cfg, on_stage=mark)
+            torch.cuda.synchronize()
+            runs.append({name: events[i - 1][1].elapsed_time(ev)
+                         for i, (name, ev) in enumerate(events) if i})
+    stages = {name: statistics.median(r[name] for r in runs[1:]) for name in runs[0]}
+    stages["total"] = sum(stages.values())
+    return stages
+
+
+def phase_slice3(kernels, agg, gs):
+    """SIFT/RootSIFT -> VLAD-k256 and FV-k256 with the shipped RootSIFT
+    vocabularies -> retrieval, through the public entry points, on 64
+    structured 384x512 images."""
+    from pyvisim_tpu_torch.encoders import FisherVectorEncoder, GMMWeights, KMeansWeights, Pipeline
+    from pyvisim_tpu_torch.encoders import VLADEncoder
+    from pyvisim_tpu_torch.features import RootSIFT
+    from pyvisim_tpu_torch.features._features import _to_gray_u8
+    from pyvisim_tpu_torch.ops import nearest_centroid
+    from pyvisim_tpu_torch.ops import sift as sift_ops
+
+    images, grays = sift_gray_batch(SIFT_IMAGES, seed=0)
+    listed = list(images)
+    vlad = VLADEncoder(weights=KMeansWeights.OXFORD102_K256_ROOTSIFT)
+    ext = vlad.feature_extractor
+    check(isinstance(ext, RootSIFT), f"VLADEncoder's default extractor is {type(ext).__name__}")
+    fv = FisherVectorEncoder(ext, weights=GMMWeights.OXFORD102_K256_ROOTSIFT_PCA)
+    pipe = Pipeline([vlad, fv])
+    pipe.encode(listed[:SIFT_BATCH])  # warm up
+    wrappers = (kernels.refine, kernels.orientation, kernels.descriptor,
+                agg.vlad_aggregate_batched, gs.gmm_stats_batched)
+    names = ("sift_refine", "sift_orientation", "sift_descriptor", "vlad", "gmm_stats")
+    n_calls = -(-SIFT_IMAGES // SIFT_BATCH)
+    n_octaves = sift_ops.SiftConfig().n_octaves
+
+    def counts():
+        return dict(zip(names, (w.launches for w in wrappers)))
+
+    def since(before):
+        return {name: n - before[name] for name, n in counts().items()}
+
+    for w in wrappers:
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vlad_vecs = vlad.encode(listed)
+    vlad_s = time.perf_counter() - t0
+    per_vlad = since(dict.fromkeys(names, 0))
+    before = counts()
+    t0 = time.perf_counter()
+    pipe_vecs = pipe.encode(listed)
+    pipe_s = time.perf_counter() - t0
+    per_pipe = since(before)
+    log(f"slice 3: VLAD encode of {SIFT_IMAGES} images {vlad_s * 1e3:.1f} ms, launches "
+        f"{per_vlad}; Pipeline encode {pipe_s * 1e3:.1f} ms, launches {per_pipe}")
+    sift_expected = {"sift_refine": n_calls * n_octaves, "sift_orientation": n_calls,
+                     "sift_descriptor": n_calls}
+    check(per_vlad == dict(sift_expected, vlad=1, gmm_stats=0), f"VLAD encode ran {per_vlad}")
+    check(per_pipe == dict(sift_expected, vlad=1, gmm_stats=1), f"Pipeline encode ran {per_pipe}")
+
+    k_vlad, d = vlad.clustering_model.centers.shape
+    n_fv = 2 * fv.clustering_model.means.shape[0] * fv.clustering_model.means.shape[1] \
+        + fv.clustering_model.means.shape[0]
+    check(vlad_vecs.shape == (SIFT_IMAGES, k_vlad * d), f"VLAD shape {vlad_vecs.shape}")
+    check(pipe_vecs.shape == (SIFT_IMAGES, k_vlad * d + n_fv), f"Pipeline shape {pipe_vecs.shape}")
+    check(bool(np.isfinite(pipe_vecs).all()), "non-finite Pipeline encodings")
+    check(np.array_equal(pipe_vecs[:, : k_vlad * d], vlad_vecs),
+          "the Pipeline's VLAD part differs from VLADEncoder.encode")
+
+    desc, mask = ext.extract_batch_device(listed)
+    valid = mask > 0
+    mean_kp = float(valid.sum(dim=1).float().mean())
+    log(f"slice 3: mean valid keypoints per image {mean_kp:.1f} of {desc.shape[1]}")
+    check(mean_kp > 0, "no keypoints")
+    labels = nearest_centroid(desc, vlad.clustering_model.centers)
+    non_empty = np.array([len(set(row[v].tolist())) for row, v in
+                          zip(labels.cpu().numpy(), valid.cpu().numpy())])
+    norms = np.linalg.norm(vlad_vecs.astype(np.float64), axis=1)
+    worst_vlad = float(np.abs(norms - np.sqrt(non_empty)).max())
+    fv_norms = np.linalg.norm(pipe_vecs[:, k_vlad * d:].astype(np.float64), axis=1)
+    worst_fv = float(np.abs(fv_norms - 1.0).max())
+    log(f"slice 3: VLAD norm vs sqrt(non-empty clusters) worst |diff| {worst_vlad:.2e}; "
+        f"FV worst |1 - norm| {worst_fv:.2e}")
+    check(worst_vlad <= 1e-3, "VLAD norms do not match the non-empty cluster counts")
+    check(worst_fv <= 1e-3, "FV norms are not 1")
+
+    self_retrieval(vlad, images)
+    self_retrieval(pipe, images)
+    self_retrieval(fv, images)
+    launches = counts()
+    check(all(launches.values()), f"slice 3 did not launch every kernel: {launches}")
+
+    # Measurements after the path, outside its launch counts.
+    t0 = time.perf_counter()
+    for im in images:
+        sift_ops._letterbox(_to_gray_u8(im), sift_ops.SiftConfig().process_size)
+    letterbox_ms = (time.perf_counter() - t0) / SIFT_IMAGES * 1e3
+    stages = sift_stage_ms(grays)
+    full_stages = sift_stage_ms(full_budget_grays(SIFT_BATCH, seed=0))
+    numbers = {
+        "vlad_encode_img_per_s": images_per_s(vlad, images),
+        "pipeline_encode_img_per_s": images_per_s(pipe, images),
+        "sift_core_ms_per_16_image_call": stages,
+        "sift_core_ms_per_16_image_call_full_budget": full_stages,
+        "letterbox_and_gray_host_ms_per_image": letterbox_ms,
+        "mean_valid_keypoints_per_image": mean_kp,
+        "launches_per_vlad_encode_of_64": per_vlad,
+        "launches_per_pipeline_encode_of_64": per_pipe,
+    }
+    log(json.dumps({"slice3": numbers, "launches": launches}))
+    return launches, numbers
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -753,12 +1158,14 @@ def main() -> int:
     from pyvisim_tpu_torch.ops.cuda import aggregate as agg
     from pyvisim_tpu_torch.ops.cuda import gmm_stats as gs
     from pyvisim_tpu_torch.ops.cuda import lloyd_stats as ls
+    from pyvisim_tpu_torch.ops.cuda import sift_window as sw
 
     t0 = time.perf_counter()
     phase_environment(_build)
     kernel = phase_kernel(agg)
     gmm_kernel = phase_gmm_kernel(gs, shipped_gmm())
     lloyd_kernel = phase_lloyd_kernel(ls)
+    sift_kernels = phase_sift_kernels(sw)
     launches, encode_launches, centers, ext, images = phase_slice(agg)
     kernel["launches"] = launches
     kernel["launches_per_encode_of_128"] = encode_launches
@@ -772,8 +1179,14 @@ def main() -> int:
     lloyd_kernel["launches_per_learn"] = {
         name: rec["lloyd_iterations"] for name, rec in numbers2["learn"].items()}
     phase_f32_crosscheck(centers)
+    launches3, numbers3 = phase_slice3(sw, agg, gs)
+    for rec in sift_kernels:
+        rec["launches"] = launches3[rec["name"]]
+        rec["launches_per_vlad_encode_of_64"] = numbers3["launches_per_vlad_encode_of_64"][rec["name"]]
+    kernel["launches_slice3"] = launches3["vlad"]
+    gmm_kernel["launches_slice3"] = launches3["gmm_stats"]
     log(f"total {time.perf_counter() - t0:.1f} s")
-    print(json.dumps({"kernels": [kernel, gmm_kernel, lloyd_kernel]}))
+    print(json.dumps({"kernels": [kernel, gmm_kernel, lloyd_kernel, *sift_kernels]}))
     print(json.dumps({
         "ok": True,
         "device": {

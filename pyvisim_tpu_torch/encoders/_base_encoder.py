@@ -4,8 +4,9 @@ Port of ``pyvisim_tpu/encoders/_base_encoder.py``: encoders hold
 codebooks of tensors (``ops/codebooks.py``) on their device, ``encode``
 runs extract -> PCA -> aggregate -> normalise on the whole batch at once,
 and ``learn`` trains the PCA and the K-Means or GMM vocabulary on the
-device. The multi-device paths and the encoding maps come with later
-slices.
+device. Extractors with a device-resident variant (SIFT/RootSIFT) hand
+their descriptors to the encode core on the device. The multi-device
+paths and the encoding maps come with later slices.
 """
 from __future__ import annotations
 
@@ -102,6 +103,15 @@ def _tupleize_first_arg(func: Callable) -> Callable:
         return func(self, image_paths, *args, **kwargs)
 
     return wrapper
+
+
+def extract_for_encoding(extractor: FeatureExtractorBase, images):
+    """An extractor's ``(desc, mask)`` for an encode that follows on the
+    device: its device-resident variant where it has one (SIFT/RootSIFT),
+    so the descriptors need no copy to the host and back."""
+    if hasattr(extractor, "extract_batch_device"):
+        return extractor.extract_batch_device(images)
+    return extractor.extract_batch(images)
 
 
 class _PretrainedModels(Enum):
@@ -392,7 +402,7 @@ class ImageEncoderBase(SimilarityMetric):
             raise RuntimeError(
                 "No clustering model set. Pass weights= or clustering_model=."
             )
-        desc, mask = self.feature_extractor.extract_batch(images)
+        desc, mask = extract_for_encoding(self.feature_extractor, images)
         out = self._encode_descriptors(desc, mask)
         if not self._flatten and out.ndim == 3:
             out = out.reshape(-1, out.shape[-1])

@@ -13,6 +13,7 @@ from typing import Callable, Optional
 import torch
 
 from .._base_classes import FeatureExtractorBase
+from ..features import RootSIFT
 from ..ops.codebooks import GmmCodebook
 from ..ops.fisher import fisher_encode_batch
 from ._base_encoder import GMMWeights, ImageEncoderBase
@@ -27,8 +28,8 @@ class FisherVectorEncoder(ImageEncoderBase):
     Same constructor surface as the JAX package's FisherVectorEncoder, plus
     ``device``; ``gmm_model`` accepts a :class:`GmmCodebook` or a fitted
     sklearn ``GaussianMixture`` (a non-diag one is converted as diagonal,
-    with a warning). Output dim is ``2*K*D + K``. The JAX package's default
-    extractor, RootSIFT, is not ported yet, so an extractor must be given.
+    with a warning). Output dim is ``2*K*D + K``. The default extractor is
+    ``RootSIFT(device=device)``.
 
     References:
     ===========
@@ -53,10 +54,7 @@ class FisherVectorEncoder(ImageEncoderBase):
         device=None,
     ):
         if feature_extractor is None:
-            raise TypeError(
-                "FisherVectorEncoder needs a feature_extractor (the default "
-                "RootSIFT is not ported to PyTorch yet)."
-            )
+            feature_extractor = RootSIFT(device=device)
         if weights is not None and weights.__class__.__name__ != "GMMWeights":
             raise ValueError(
                 "You can only pass an instance of GMMWeights, "

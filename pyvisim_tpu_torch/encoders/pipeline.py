@@ -16,7 +16,7 @@ import torch
 from .._base_classes import SimilarityMetric
 from .._config import get_logger
 from .._utils import cosine_similarity
-from ._base_encoder import ImageEncoderBase, check_desired_output
+from ._base_encoder import ImageEncoderBase, check_desired_output, extract_for_encoding
 
 __all__ = ["Pipeline"]
 
@@ -65,7 +65,7 @@ class Pipeline(SimilarityMetric):
         for enc in self.encoders:
             ext = enc.feature_extractor
             if id(ext) not in features:
-                features[id(ext)] = ext.extract_batch(images)
+                features[id(ext)] = extract_for_encoding(ext, images)
 
         all_encodings = []
         for enc in self.encoders:

@@ -11,6 +11,7 @@ from typing import Callable, Optional
 import torch
 
 from .._base_classes import FeatureExtractorBase
+from ..features import RootSIFT
 from ..ops.codebooks import KMeansCodebook
 from ..ops.vlad import vlad_encode_batch
 from ._base_encoder import ImageEncoderBase, KMeansWeights
@@ -24,9 +25,8 @@ class VLADEncoder(ImageEncoderBase):
 
     Same constructor surface as the JAX package's VLADEncoder, plus
     ``device``; ``kmeans_model`` accepts a :class:`KMeansCodebook` or a
-    fitted sklearn ``KMeans``. Output dim is ``K * D``. The JAX package's
-    default extractor, RootSIFT, is not ported yet, so an extractor must
-    be given.
+    fitted sklearn ``KMeans``. Output dim is ``K * D``. The default
+    extractor is ``RootSIFT(device=device)``.
 
     References:
     ===========
@@ -54,10 +54,7 @@ class VLADEncoder(ImageEncoderBase):
         device=None,
     ) -> None:
         if feature_extractor is None:
-            raise TypeError(
-                "VLADEncoder needs a feature_extractor (the default RootSIFT "
-                "is not ported to PyTorch yet)."
-            )
+            feature_extractor = RootSIFT(device=device)
         if weights is not None and weights.__class__.__name__ != "KMeansWeights":
             raise ValueError(
                 "You can only pass an instance of KMeansWeights, "

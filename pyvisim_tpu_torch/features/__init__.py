@@ -1,4 +1,4 @@
 """Feature extractors (port of ``pyvisim_tpu/features``)."""
-from ._features import DeepConvFeature, FeatureExtractorBase
+from ._features import SIFT, DeepConvFeature, FeatureExtractorBase, Lambda, RootSIFT
 
-__all__ = ["DeepConvFeature", "FeatureExtractorBase"]
+__all__ = ["SIFT", "RootSIFT", "Lambda", "DeepConvFeature", "FeatureExtractorBase"]

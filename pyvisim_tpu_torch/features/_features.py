@@ -1,9 +1,12 @@
-"""Feature extractors: DeepConvFeature.
+"""Feature extractors: SIFT, RootSIFT, Lambda, DeepConvFeature.
 
-Port of the deep half of ``pyvisim_tpu/features/_features.py``: a VGG
-trunk (``models/vgg.py``) whose chosen conv map is flattened into
-descriptors, with a batched device path. SIFT, RootSIFT and Lambda come
-with a later slice.
+Port of ``pyvisim_tpu/features/_features.py``. ``SIFT``/``RootSIFT`` run
+the batched detect-and-describe of ``ops/sift.py`` with a fixed keypoint
+budget and masks; the JAX package's OpenCV route (``backend="opencv"``) is
+not ported. ``DeepConvFeature`` is a
+VGG trunk (``models/vgg.py``) whose chosen conv map is flattened into
+descriptors, with a batched device path. The multi-device (mesh) SIFT
+path is not ported.
 """
 from __future__ import annotations
 
@@ -19,11 +22,12 @@ from torch import nn
 from .._base_classes import FeatureExtractorBase
 from .._config import get_logger, resolve_device
 from ..models import vgg as vgg_lib
+from ..ops import sift as sift_ops
 from ..ops.resize import masked_linear_resize
 
 logger = get_logger("features")
 
-__all__ = ["DeepConvFeature", "FeatureExtractorBase"]
+__all__ = ["SIFT", "RootSIFT", "Lambda", "DeepConvFeature", "FeatureExtractorBase"]
 
 
 def _check_output_shape(func) -> Callable:
@@ -53,6 +57,139 @@ def _check_output_shape(func) -> Callable:
         return feat_vecs
 
     return wrapper
+
+
+def _to_gray_u8(image: np.ndarray) -> np.ndarray:
+    """RGB/gray -> uint8 grayscale, matching OpenCV's RGB2GRAY weights."""
+    if image.ndim == 3:
+        g = image[..., 0] * 0.299 + image[..., 1] * 0.587 + image[..., 2] * 0.114
+        return np.round(g).astype(np.uint8)
+    return image.astype(np.uint8)
+
+
+class SIFT(FeatureExtractorBase):
+    """Scale-Invariant Feature Transform extractor, 128-D descriptors.
+
+    Runs the batched pipeline of ``ops/sift.py`` on ``device`` with a
+    static per-image keypoint budget.
+
+    :param backend: "torch", the only one (OpenCV's route is not ported).
+    :param max_keypoints: static keypoint budget N_max.
+    :param process_size: static letterbox resolution.
+    :param device: where SIFT runs; None means CUDA.
+    """
+
+    def __init__(
+        self,
+        backend: str = "torch",
+        max_keypoints: int = 2048,
+        process_size: int = 512,
+        device=None,
+    ):
+        super().__init__()
+        if backend != "torch":
+            raise ValueError(f"Unknown SIFT backend: {backend!r} (the port has only 'torch')")
+        self.device = resolve_device(device)
+        self._output_dim = 128
+        self.backend = backend
+        self.max_keypoints = max_keypoints
+        self.process_size = process_size
+        self._root = False  # RootSIFT flips this
+
+    @property
+    def output_dim(self) -> int:
+        return self._output_dim
+
+    @property
+    def descriptor_budget(self) -> int | None:
+        return self.max_keypoints
+
+    @property
+    def _sift_cfg(self):
+        return sift_ops.SiftConfig(max_keypoints=self.max_keypoints,
+                                   process_size=self.process_size)
+
+    @_check_output_shape
+    def __call__(self, image: np.ndarray) -> np.ndarray:
+        super().__call__(image)
+        gray = _to_gray_u8(image).astype(np.float32) / 255.0
+        desc, mask = sift_ops.sift_single(
+            gray, max_keypoints=self.max_keypoints, root_sift=self._root, cfg=self._sift_cfg,
+            run_on=self.device,
+        )
+        return desc[mask > 0.5]
+
+    def _grays(self, images) -> list[np.ndarray]:
+        if isinstance(images, np.ndarray) and images.ndim == 3:
+            images = [images]
+        return [_to_gray_u8(np.asarray(img)) for img in images]
+
+    def extract_batch(self, images):
+        """``(desc (B, N, 128), mask (B, N))`` as numpy arrays, in device
+        calls of ``PYVISIM_SIFT_DEVICE_BATCH`` (default 16) images."""
+        return sift_ops.sift_batch(
+            self._grays(images), max_keypoints=self.max_keypoints, root_sift=self._root,
+            cfg=self._sift_cfg, run_on=self.device,
+        )
+
+    def extract_batch_device(self, images):
+        """As ``extract_batch``, but the results stay on the device as
+        tensors (f32, root-SIFT applied there), so an encoder that follows
+        on the device needs no copies. More than 16 device calls' worth of
+        images take ``extract_batch``, so a gallery pins no device memory."""
+        if not isinstance(images, np.ndarray):
+            images = list(images)
+        cap = 16 * int(os.environ.get("PYVISIM_SIFT_DEVICE_BATCH", "16"))
+        if len(images) > cap:
+            return self.extract_batch(images)
+        return sift_ops.sift_batch(
+            self._grays(images), max_keypoints=self.max_keypoints, root_sift=self._root,
+            cfg=self._sift_cfg, device=True, run_on=self.device,
+        )
+
+    def __repr__(self):
+        return f"{type(self).__name__}(output_dim={self.output_dim}, backend={self.backend!r})"
+
+
+class RootSIFT(SIFT):
+    """SIFT with the Hellinger kernel map: L1-normalise (+1e-7), then the
+    square root, applied on the device."""
+
+    def __init__(
+        self,
+        backend: str = "torch",
+        max_keypoints: int = 2048,
+        process_size: int = 512,
+        device=None,
+    ):
+        super().__init__(backend=backend, max_keypoints=max_keypoints,
+                         process_size=process_size, device=device)
+        self._root = True
+
+
+class Lambda(FeatureExtractorBase):
+    """Wraps any user callable ``image -> (N, output_dim)`` array."""
+
+    def __init__(self, func: Callable, output_dim: int):
+        super().__init__()
+        if not callable(func):
+            raise ValueError(
+                f"Argument func must be a callable object, got {type(func)} instead"
+            )
+        self._output_dim = output_dim
+        self.func = func
+
+    @property
+    def output_dim(self) -> int:
+        return self._output_dim
+
+    @_check_output_shape
+    def __call__(self, image: np.ndarray) -> np.ndarray:
+        super().__call__(image)
+        return self.func(image)
+
+    def __repr__(self):
+        return f"Lambda(output_dim={self.output_dim})"
 
 
 class DeepConvFeature(FeatureExtractorBase):

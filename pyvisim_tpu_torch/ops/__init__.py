@@ -1,7 +1,7 @@
 """pyvisim_tpu_torch.ops — functional compute cores in PyTorch.
 
-Port of ``pyvisim_tpu/ops`` for deep features -> VLAD / Fisher vectors ->
-retrieval and vocabulary training. The TPU kernels on those paths are CUDA
+Port of ``pyvisim_tpu/ops`` for deep features and SIFT/RootSIFT (``ops.sift``)
+-> VLAD / Fisher vectors -> retrieval and vocabulary training. The TPU kernels on those paths are CUDA
 kernels in ``ops/cuda``.
 """
 from .codebooks import (
@@ -20,6 +20,7 @@ from .similarity import cosine_similarity_matrix, pairwise_euclidean
 from .kmeans import kmeans_fit, kmeans_plus_plus_init, lloyd_step
 from .gmm import em_step, gmm_fit
 from .pca import pca_fit, projector_from_moments
+from .gaussian import gaussian_blur, gaussian_blur_batch
 
 __all__ = [
     "GmmCodebook",
@@ -50,4 +51,6 @@ __all__ = [
     "gmm_fit",
     "pca_fit",
     "projector_from_moments",
+    "gaussian_blur",
+    "gaussian_blur_batch",
 ]

@@ -26,6 +26,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
+# Flags of single sources. The SIFT kernels repeat their plain versions'
+# float arithmetic operation for operation, so no multiply-add is fused.
+SOURCE_FLAGS = {"sift_window": ("--fmad=false",)}
 
 
 def _nvcc() -> str:
@@ -45,7 +48,7 @@ def library_path(name: str) -> pathlib.Path:
     for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(NVCC_FLAGS + SOURCE_FLAGS.get(name, ())).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -65,7 +68,8 @@ def build(names) -> dict[str, dict]:
         # Write to a private name and rename, so concurrent builders never
         # load a half-written library.
         tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, *SOURCE_FLAGS.get(name, ()), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         started[name] = (proc, tmp, lib, time.perf_counter())
     report = {}

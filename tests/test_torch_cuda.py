@@ -9,14 +9,18 @@ PyTorch; the suite's conftest.py sets up JAX, so leave it out there:
 import pytest
 import torch
 
+import numpy as np
+
 from pyvisim_tpu_torch.ops import fisher as tfisher
 from pyvisim_tpu_torch.ops import gmm as tgmm
 from pyvisim_tpu_torch.ops import kmeans as tkmeans
+from pyvisim_tpu_torch.ops import sift as tsift
 from pyvisim_tpu_torch.ops import vlad as tvlad
 from pyvisim_tpu_torch.ops.codebooks import GmmCodebook
 from pyvisim_tpu_torch.ops.cuda import aggregate as tagg
 from pyvisim_tpu_torch.ops.cuda import gmm_stats as tgs
 from pyvisim_tpu_torch.ops.cuda import lloyd_stats as tls
+from pyvisim_tpu_torch.ops.cuda import sift_window as tsw
 
 pytestmark = pytest.mark.cuda
 
@@ -47,7 +51,7 @@ def _margin_batch(b, n, d, k, seed=0):
 # center tiles; and enough centers that the accumulator takes 128-, 64-
 # and 32-column slices.
 SHAPES = [
-    (4, 196, 514, 16), (3, 17, 33, 5), (2, 300, 130, 70), (1, 50, 514, 300),
+    (4, 196, 514, 16), (3, 2048, 128, 256), (3, 17, 33, 5), (2, 300, 130, 70), (1, 50, 514, 300),
     (1, 40, 130, 600), (1, 30, 70, 1000),
 ]
 
@@ -120,10 +124,11 @@ def _close(got, want, what):
     assert err <= tol, f"{what}: max|diff| {err} > {tol}"
 
 
-# (B, N, D, K): the encode and EM widths, ragged row/column/component
-# tiles, one set cut into several row segments, K = 1 and one row.
+# (B, N, D, K): the encode and EM widths, the RootSIFT FV width (sets of
+# 2,048 rows, two row segments each), ragged row/column/component tiles,
+# one set cut into several row segments, K = 1 and one row.
 GMM_SHAPES = [
-    (2, 196, 257, 256), (3, 17, 33, 7), (1, 3000, 257, 1), (1, 2500, 514, 7),
+    (2, 196, 257, 256), (3, 2048, 64, 256), (3, 17, 33, 7), (1, 3000, 257, 1), (1, 2500, 514, 7),
     (4, 1, 20, 5), (2, 2100, 40, 70),
 ]
 
@@ -218,3 +223,193 @@ def test_fit_steps_and_fisher_encode_on_card_match_cpu(cuda_device, chunk_size):
                                       centers.to(cuda_device), chunk_size)
     torch.testing.assert_close(c_gpu.cpu(), c_cpu, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(i_gpu.cpu(), i_cpu, rtol=1e-4, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# SIFT kernels: refinement, orientation, descriptor
+# ---------------------------------------------------------------------------
+SIFT_CFG = tsift.SiftConfig(process_size=64, max_keypoints=96)
+REFINE_KW = dict(n_layers=3, steps=5, reach=3, contrast_threshold=0.04, edge_threshold=10.0)
+
+
+def _blobs(b, size=64, seed=0):
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:size, :size]
+    img = np.zeros((b, size, size), np.float32)
+    for i in range(b):
+        for _ in range(40):
+            y, x, s = rng.integers(2, size - 2), rng.integers(2, size - 2), rng.uniform(1, 5)
+            img[i] += np.exp(-((yy - y) ** 2 + (xx - x) ** 2) / (2 * s * s)) * rng.uniform(40, 200)
+    return torch.from_numpy(np.clip(img, 0, 255))
+
+
+@pytest.fixture(scope="module")
+def pyramid():
+    """Gaussian levels and DoG of a 3-image batch (built on the CPU)."""
+    up = tsift._upscale2x(_blobs(3))
+    return tsift._build_pyramids(tsift.gaussian_blur_batch(up, 1.249), SIFT_CFG)
+
+
+def _refine_both(dog, img, layer, row, col, valid):
+    got = tsw.refine(dog, img, layer, row, col, valid, **REFINE_KW)
+    again = tsw.refine(dog, img, layer, row, col, valid, **REFINE_KW)
+    want = tsw.refine_reference(dog, img, layer, row, col, valid, **REFINE_KW)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert torch.equal(got.ok, want.ok)
+    for name in ("layer", "row", "col"):
+        assert torch.equal(getattr(got, name), getattr(want, name))
+    for name in ("xr", "xc", "xi", "contrast"):
+        # the kernel repeats the plain version's f32 operations (no FMA)
+        torch.testing.assert_close(getattr(got, name), getattr(want, name), rtol=0, atol=1e-5)
+    return got
+
+
+def test_refine_kernel_matches_plain_version(cuda_device, pyramid):
+    _, dogs = pyramid
+    kept = 0
+    for o, dog in enumerate(dogs):
+        _, layer, r, c, valid = tsift._rank_candidates(dog, SIFT_CFG.octave_budget(o), SIFT_CFG)
+        b, k = valid.shape
+        img = torch.arange(b, dtype=torch.int32).repeat_interleave(k)
+        args = [t.to(cuda_device).contiguous() for t in
+                (dog, img, layer.reshape(-1), r.reshape(-1), c.reshape(-1), valid.reshape(-1))]
+        before = tsw.refine.launches
+        kept += int(_refine_both(*args).ok.sum())
+        assert tsw.refine.launches == before + 2
+    assert kept > 20
+
+
+def test_refine_kernel_ragged_inputs(cuda_device, pyramid):
+    """One candidate, a few, all invalid, and candidates on the 5-px border
+    and at positions that are no extrema (they step or are rejected)."""
+    dog = pyramid[1][0].to(cuda_device)
+    h, w = dog.shape[2:]
+    i32 = dict(dtype=torch.int32, device=cuda_device)
+    rows = torch.tensor([5, h - 6, 20, 7, 33, 5, 60, 64], **i32)
+    cols = torch.tensor([5, w - 6, 21, w - 6, 40, 90, 5, 64], **i32)
+    layers = torch.tensor([1, 3, 2, 1, 2, 3, 1, 2], **i32)
+    imgs = torch.tensor([0, 1, 2, 0, 1, 2, 0, 1], **i32)
+    valid = torch.ones(8, dtype=torch.bool, device=cuda_device)
+    for n in (1, 3, 8):
+        _refine_both(dog, imgs[:n], layers[:n], rows[:n], cols[:n], valid[:n])
+    out = _refine_both(dog, imgs, layers, rows, cols, torch.zeros_like(valid))
+    assert not out.ok.any() and torch.equal(out.row, rows) and not out.xr.any()
+    empty = tsw.refine(dog, imgs[:0], layers[:0], rows[:0], cols[:0], valid[:0], **REFINE_KW)
+    assert empty.ok.numel() == 0
+
+
+def _keypoints(atlas, octaves, n, seed=0, n_images=3):
+    """Random keypoints over every octave, their scales spread over every
+    radius class, some on the image border, one in ten invalid."""
+    g = torch.Generator().manual_seed(seed)
+    octave = torch.randint(0, octaves.shape[0], (n,), generator=g, dtype=torch.int32)
+    h = octaves[octave.long(), 1].cpu().to(torch.int32)
+    w = octaves[octave.long(), 2].cpu().to(torch.int32)
+    row = (torch.rand(n, generator=g) * h).to(torch.int32)
+    col = (torch.rand(n, generator=g) * w).to(torch.int32)
+    edge = torch.arange(4, dtype=torch.int32)[: max(0, min(n, 8) - 4)]
+    row[:4] = torch.arange(4, dtype=torch.int32)[:n]
+    col[4 : 4 + edge.numel()] = w[4 : 4 + edge.numel()] - 1 - edge
+    scl = 1.6 * 2.0 ** (torch.rand(n, generator=g) * 2.2)  # radius classes 12..40
+    theta = (torch.rand(n, generator=g) * 2 - 1) * np.pi
+    valid = torch.rand(n, generator=g) > 0.1
+    return dict(
+        atlas=atlas, octaves=octaves,
+        img=torch.randint(0, n_images, (n,), generator=g, dtype=torch.int32),
+        octave=octave, layer=torch.randint(1, 4, (n,), generator=g, dtype=torch.int32),
+        row=row, col=col, scl=scl.to(torch.float32), valid=valid,
+    ), theta.to(torch.float32)
+
+
+@pytest.fixture(scope="module")
+def atlases(pyramid):
+    gauss, _ = pyramid
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        cfg = tsift.SiftConfig(process_size=64, max_keypoints=96, atlas_dtype=dtype)
+        out[dtype] = tsift._grad_atlas(gauss, cfg)
+    return out
+
+
+def _on(device, kw):
+    return {k: v.to(device).contiguous() if torch.is_tensor(v) else v for k, v in kw.items()}
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("n", [1, 5, 700])
+def test_orientation_kernel_matches_plain_version(cuda_device, atlases, dtype, n):
+    kw, _ = _keypoints(*atlases[dtype], n)
+    kw["radius"] = tsift._radius_class(kw["scl"], 4.5, SIFT_CFG.ori_radius_classes)
+    kw = _on(cuda_device, kw)
+    before = tsw.orientation.launches
+    got = tsw.orientation(**kw, n_layers=3)
+    again = tsw.orientation(**kw, n_layers=3)
+    want = tsw.orientation_reference(**kw, n_layers=3)
+    torch.cuda.synchronize()
+    assert tsw.orientation.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    # same f32 operations, each bin summed in the same order
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert not got[0][~kw["valid"]].any()
+    if n == 700:
+        assert set(kw["radius"].tolist()) == set(SIFT_CFG.ori_radius_classes)
+        assert got[2].any()
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("n", [1, 5, 700])
+def test_descriptor_kernel_matches_plain_version(cuda_device, atlases, dtype, n):
+    kw, theta = _keypoints(*atlases[dtype], n, seed=1)
+    kw["radius"] = tsift._radius_class(kw["scl"], 3.0 * 1.4142135623730951 * 2.5,
+                                       SIFT_CFG.desc_radius_classes)
+    kw = _on(cuda_device, dict(kw, theta=theta))
+    before = tsw.descriptor.launches
+    got = tsw.descriptor(**kw, n_layers=3)
+    again = tsw.descriptor(**kw, n_layers=3)
+    want = tsw.descriptor_reference(**kw, n_layers=3)
+    torch.cuda.synchronize()
+    assert tsw.descriptor.launches == before + 2
+    assert torch.equal(got, again)
+    # the plain version's batched matmul sums the histogram in another order
+    diff = (got - want).abs()
+    assert diff.max().item() <= 1.0
+    assert (diff[kw["valid"]] == 0).float().mean().item() >= 0.99
+    assert not got[~kw["valid"]].any()
+    assert got.max().item() <= 255.0 and torch.equal(got, got.round())
+    if n == 700:
+        assert set(kw["radius"].tolist()) == set(SIFT_CFG.desc_radius_classes)
+
+
+def test_window_kernels_all_invalid_and_refusals(cuda_device, atlases):
+    kw, theta = _keypoints(*atlases["bfloat16"], 6)
+    kw["radius"] = torch.full((6,), 12, dtype=torch.int32)
+    kw["valid"] = torch.zeros(6, dtype=torch.bool)
+    kw = _on(cuda_device, kw)
+    t1, t2, second = tsw.orientation(**kw, n_layers=3)
+    desc = tsw.descriptor(**kw, theta=theta.to(cuda_device), n_layers=3)
+    torch.cuda.synchronize()
+    assert not (t1.any() or t2.any() or second.any() or desc.any())
+    bad = [
+        (TypeError, dict(scl=kw["scl"].double())),
+        (TypeError, dict(row=kw["row"].long())),
+        (TypeError, dict(atlas=kw["atlas"].half())),
+        (ValueError, dict(col=kw["col"][:5].contiguous())),
+        (ValueError, dict(octaves=kw["octaves"].cpu())),
+        (ValueError, dict(atlas=kw["atlas"][None])),
+        (ValueError, dict(layer=kw["layer"].reshape(2, 3))),
+    ]
+    for err, change in bad:
+        with pytest.raises(err):
+            tsw.orientation(**dict(kw, **change), n_layers=3)
+    dog = torch.zeros((1, 5, 16, 16), device=cuda_device)
+    cand = [torch.zeros(2, dtype=torch.int32, device=cuda_device) for _ in range(4)]
+    ok = torch.ones(2, dtype=torch.bool, device=cuda_device)
+    with pytest.raises(TypeError):
+        tsw.refine(dog.double(), *cand, ok, **REFINE_KW)
+    with pytest.raises(ValueError):
+        tsw.refine(dog[0], *cand, ok, **REFINE_KW)
+    with pytest.raises(ValueError):
+        tsw.refine(dog, *cand, ok.cpu(), **REFINE_KW)
+    with pytest.raises(ValueError):
+        tsw.refine(dog[:, :4].contiguous(), *cand, ok, **REFINE_KW)

@@ -105,8 +105,9 @@ def test_fisher_encoder_and_pipeline_default_device_raise_without_cuda(no_cuda):
                       covariances=np.ones((2, d), np.float32))
     with pytest.raises(RuntimeError, match="CUDA"):
         FisherVectorEncoder(ext, gmm_model=gmm, device="cuda")
-    with pytest.raises(TypeError, match="feature_extractor"):
-        FisherVectorEncoder(gmm_model=gmm, device="cpu")
+    # no extractor: the default RootSIFT runs on the default device too
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FisherVectorEncoder(gmm_model=gmm)
     fv = FisherVectorEncoder(ext, gmm_model=gmm)
     vlad = VLADEncoder(ext, kmeans_model=KMeansCodebook(np.zeros((2, d), np.float32)))
     assert fv.device.type == "cpu"
@@ -123,3 +124,16 @@ def test_fits_default_device_raises_without_cuda(no_cuda, fit):
     with pytest.raises(RuntimeError, match="CUDA"):
         getattr(ops, fit)(x, 2)
     assert getattr(ops, fit)(x, 2, device="cpu") is not None
+
+
+def test_sift_default_device_raises_without_cuda(no_cuda):
+    from pyvisim_tpu_torch.encoders import VLADEncoder
+    from pyvisim_tpu_torch.features import SIFT, RootSIFT
+    from pyvisim_tpu_torch.ops import sift
+
+    for make in (SIFT, RootSIFT, VLADEncoder,
+                 lambda: sift.sift_batch([np.zeros((8, 8), np.uint8)], max_keypoints=16)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    assert RootSIFT(device="cpu").device.type == "cpu"
+    assert VLADEncoder(device="cpu").feature_extractor.device.type == "cpu"
