@@ -29,6 +29,14 @@ Phases, each of which raises on a failed check:
       refinement ok flags and positions equal and offsets to 1e-5, angles
       to 1e-5 rad and second-peak flags equal, descriptors within 1 unit
       and exact on >= 99 % of entries; each kernel's two calls bit-equal.
+   e. The fused conv kernels at the int8 trunk's shapes (VGG16, 224^2,
+      bf16, B=128): kernel 7 at conv1 and conv3, kernel 8 pooled at conv6
+      and conv9 and unpooled at conv4, 5, 7 and 8, each against its plain
+      version on the first 16 images: kernel 8 and its int32 accumulators
+      bit for bit, kernel 7 within one bf16 step and exact on >= 99 % of
+      entries; kernel 7 in float32 at conv3's shape to 1e-5 * max|ref|;
+      each kernel's two calls bit-equal. Timed beside the cuDNN sequence
+      conv2d + relu_ + max_pool2d at the same shape.
 3. Slice 1: ``VLADEncoder(DeepConvFeature("vgg16", 224, bf16))`` with
    K=256 on 128 images, then retrieval of 8 of them from a gallery of all
    128.
@@ -42,7 +50,9 @@ Phases, each of which raises on a failed check:
    learned vocabularies.
 5. f32 cross-check: 2 images encoded in float32 (cuDNN TF32 off) on the
    card and on the CPU, by VLAD, Fisher vectors and the Pipeline, must
-   agree to cosine > 0.9999.
+   agree to cosine > 0.9999; so must VLAD over the int8 trunk in float32
+   on 2 images at 112^2 (kernels 7 and 8 on the card, their plain
+   versions on the CPU).
 6. Slice 3: ``VLADEncoder(weights=KMeansWeights.OXFORD102_K256_ROOTSIFT)``
    with its default RootSIFT and ``Pipeline([vlad, fv])`` with the shipped
    GMM-k256/PCA-64 encode 64 structured 384x512 images (four 16-image SIFT
@@ -51,6 +61,12 @@ Phases, each of which raises on a failed check:
    of every SIFT, VLAD and GMM kernel per encode. Prints encode img/s,
    the SIFT core's device ms by stage (on these images and on images that
    fill the keypoint budget) and the host letterbox's ms.
+7. Slice 4: ``VLADEncoder(DeepConvFeature("vgg16", 224, bf16, int8=True))``
+   with slice 1's centers on its 128 images: 2 launches of kernel 7, 2 of
+   pooled and 4 of unpooled kernel 8 and 1 of VLAD per encode, retrieval,
+   VLAD norms, and encodings at cosine > 0.999 against the float32 trunk's.
+   Prints encode img/s, the device graph's and the int8 and bf16 trunks'
+   ms, and device profiles by operator.
 
 Each slice resets the kernels' launch counts just before it and reads
 them just after.
@@ -70,6 +86,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 REPO = pathlib.Path(__file__).resolve().parent
 
@@ -760,6 +777,17 @@ def phase_f32_crosscheck(centers):
         log(f"f32 card vs cpu, {name}: cosine {cos.tolist()}, "
             f"max|diff| {float(np.abs(a.astype(np.float64) - b).max()):.3e}")
         check(bool((cos > 0.9999).all()), f"float32 card and CPU {name} encodings disagree: {cos}")
+    # The int8 trunk in float32 at 112^2 (conv2-6 int8), where the CPU's
+    # exact float64 int8 convs take seconds: kernels 7 and 8 on the card
+    # against their plain versions on the CPU, end to end.
+    small = structured_images(np.random.default_rng(2), 2, 112)
+    int8_vecs = [VLADEncoder(DeepConvFeature("vgg16", image_size=112, int8=True, device=device),
+                             kmeans_model=KMeansCodebook(centers)).encode(small)
+                 for device in ("cuda", "cpu")]
+    cos = cosine_rows(*int8_vecs)
+    log(f"f32 card vs cpu, int8 trunk at 112^2: cosine {cos.tolist()}, max|diff| "
+        f"{float(np.abs(int8_vecs[0].astype(np.float64) - int8_vecs[1]).max()):.3e}")
+    check(bool((cos > 0.9999).all()), f"float32 int8-trunk card and CPU encodings disagree: {cos}")
 
 
 SIFT_BATCH = 16  # images per SIFT device call (PYVISIM_SIFT_DEVICE_BATCH)
@@ -1149,6 +1177,225 @@ def phase_slice3(kernels, agg, gs):
     return launches, numbers
 
 
+# Published peaks of one H100 SXM on the tensor cores (dense, 700 W).
+BF16_TENSOR_FLOPS = 989e12
+INT8_TENSOR_OPS = 1979e12
+
+# The fused conv layers of VGG16's int8 trunk at 224^2: (layer, H = W, Cin,
+# Cout, route). k7 is kernel 7, k8p kernel 8 with the pool, k8 without.
+VGG16_FUSED = [
+    ("conv1", 224, 64, 64, "k7"), ("conv3", 112, 128, 128, "k7"),
+    ("conv4", 56, 128, 256, "k8"), ("conv5", 56, 256, 256, "k8"), ("conv6", 56, 256, 256, "k8p"),
+    ("conv7", 28, 256, 512, "k8"), ("conv8", 28, 512, 512, "k8"), ("conv9", 28, 512, 512, "k8p"),
+]
+N_CHECK = 16  # images of each batch held against the plain version
+
+
+def conv_bound(b: int, hw: int, cin: int, cout: int, route: str, dtype) -> dict:
+    """The least time of the card for one fused conv call: its operations
+    at the bf16 (or f32) or int8 tensor rate, or the bytes of x, the
+    weights, bias and scales read once and the output written once."""
+    ops = 2 * b * hw * hw * 9 * cin * cout
+    size = torch.tensor([], dtype=dtype).element_size()
+    out_hw = hw // 2 if route in ("k7", "k8p") else hw
+    w_bytes = 9 * cin * cout * (1 if route != "k7" else size)
+    n_bytes = size * b * hw * hw * cin + w_bytes + 8 * cout + 4 * b + size * b * out_hw ** 2 * cout
+    rate = INT8_TENSOR_OPS if route != "k7" else (
+        BF16_TENSOR_FLOPS if dtype == torch.bfloat16 else F32_CUDA_CORE_FLOPS)
+    ops_ms, bytes_ms = ops / rate * 1e3, n_bytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "gop": ops / 1e9, "mb": n_bytes / 1e6}
+
+
+def bf16_ulp(t: torch.Tensor) -> torch.Tensor:
+    """One bfloat16 step at each value of t (8 significant bits)."""
+    _, exp = torch.frexp(t.float())
+    return torch.ldexp(torch.ones_like(t, dtype=torch.float32), exp - 8)
+
+
+def check_conv_call(conv, layer, hw, cin, cout, route, dtype=torch.bfloat16) -> dict:
+    """One fused conv of the trunk at B=128 against its plain version on the
+    first 16 images; its time, the plain version's and the cuDNN sequence's
+    (conv2d with bias, relu_, max_pool2d: three calls) on the whole batch."""
+    g = torch.Generator(device="cuda").manual_seed(int(layer[4:]))
+    x = torch.randn(B, hw, hw, cin, device="cuda", generator=g).relu_().to(dtype)
+    w = torch.randn(cout, 3, 3, cin, device="cuda", generator=g) / (9 * cin) ** 0.5
+    bias = 0.1 * torch.randn(cout, device="cuda", generator=g)
+    x16 = x[:N_CHECK].contiguous()
+    rec = {"layer": layer, "shape": f"B={B} {hw}x{hw} {cin}->{cout}", "route": route,
+           "dtype": str(dtype).replace("torch.", "")}
+    if route == "k7":
+        wx = w.to(dtype)
+        run = lambda: conv.conv3x3_relu_maxpool(x, wx, bias)  # noqa: E731
+        plain = lambda: conv.conv3x3_relu_maxpool_reference(x, wx, bias)  # noqa: E731
+        got, again = run(), run()
+        want = conv.conv3x3_relu_maxpool_reference(x16, wx, bias)
+        torch.cuda.synchronize()
+        check(torch.equal(got, again), f"{layer}: kernel 7 does not repeat bit for bit")
+        diff = (got[:N_CHECK].float() - want.float()).abs()
+        rec["max_abs_err"] = float(diff.max())
+        if dtype == torch.bfloat16:
+            rec["exact_share"] = float((diff == 0).float().mean())
+            ok = bool((diff <= bf16_ulp(want) + 1e-6).all())
+            check(ok, f"{layer}: kernel 7 is more than one bf16 step from its plain version")
+            check(rec["exact_share"] >= 0.99, f"{layer}: only {rec['exact_share']} exact")
+        else:
+            tol = 1e-5 * float(want.abs().max())
+            check(rec["max_abs_err"] <= tol, f"{layer} f32: kernel 7 off by {rec['max_abs_err']}")
+    else:
+        wq, sw = conv.quantize_weight(w)
+        wq = wq.contiguous()
+        pool = route == "k8p"
+        fn = conv.conv3x3_relu_maxpool_q8 if pool else conv.conv3x3_q8
+        run = lambda: fn(x, wq, sw, bias)  # noqa: E731
+        plain = lambda: conv.conv3x3_q8_reference(x, wq, sw, bias, pool=pool)  # noqa: E731
+        got, again = run(), run()
+        got16, acc16 = fn(x16, wq, sw, bias, return_acc=True)
+        want, want_acc = conv.conv3x3_q8_reference(x16, wq, sw, bias, pool=pool, return_acc=True)
+        torch.cuda.synchronize()
+        check(torch.equal(got, again), f"{layer}: kernel 8 does not repeat bit for bit")
+        check(torch.equal(acc16, want_acc), f"{layer}: kernel 8's int32 accumulators differ")
+        check(torch.equal(got16, want) and torch.equal(got[:N_CHECK], want),
+              f"{layer}: kernel 8 differs from its plain version")
+        rec["max_abs_err"] = float((got[:N_CHECK].float() - want.float()).abs().max())
+    nchw = x.permute(0, 3, 1, 2)
+    w_cl = w.to(dtype).permute(0, 3, 1, 2)
+    b_x = bias.to(dtype)
+    if route == "k8":
+        seq = lambda: torch.relu_(F.conv2d(nchw, w_cl, b_x, padding=1))  # noqa: E731
+    else:
+        seq = lambda: F.max_pool2d(torch.relu_(F.conv2d(nchw, w_cl, b_x, padding=1)), 2, 2)  # noqa: E731
+    flags = torch.backends.cudnn.flags(enabled=True, allow_tf32=False)
+    with flags:
+        rec["ms"] = cuda_ms(run, reps=5, rounds=5)
+        rec["plain_ms"] = cuda_ms(plain, reps=1, rounds=3, warmup=1)
+        rec["cudnn_sequence_ms"] = cuda_ms(seq, reps=5, rounds=5)
+    rec.update(conv_bound(B, hw, cin, cout, route, dtype))
+    log(f"conv {layer} {route} {rec['dtype']}: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f}, "
+        f"cuDNN sequence {rec['cudnn_sequence_ms']:.4f}, bound {rec['bound_ms']:.4f} "
+        f"({rec['bound_by']}, {rec['gop']:.1f} GOP, {rec['mb']:.1f} MB); max|diff| "
+        f"{rec['max_abs_err']:.3e}" + (f", exact {rec['exact_share']:.6f}" if "exact_share" in rec else ""))
+    return rec
+
+
+def phase_conv_kernels(conv):
+    """Phase 2e: kernels 7 and 8 at the int8 trunk's shapes (bf16, B=128),
+    and kernel 7 in float32 at conv3's. Returns the two kernels' records,
+    whose times and bounds sum their calls of one 128-image encode."""
+    calls = [check_conv_call(conv, *spec) for spec in VGG16_FUSED]
+    f32 = check_conv_call(conv, "conv3", 112, 128, 128, "k7", dtype=torch.float32)
+    records = []
+    for name, line, routes in (("conv3x3_relu_maxpool", 157, ("k7",)),
+                               ("conv3x3_relu_maxpool_q8", 301, ("k8", "k8p"))):
+        mine = [c for c in calls if c["route"] in routes]
+        total = {key: sum(c[key] for c in mine) for key in
+                 ("ms", "plain_ms", "cudnn_sequence_ms", "bound_ms")}
+        records.append({
+            "name": name, "route": "cuda", "source": "pyvisim_tpu_torch/csrc/conv.cu",
+            "replaces": f"pyvisim_tpu/ops/pallas/conv.py:{line}",
+            "replaces_function": "_fused_kernel" if line == 157 else "_fused_kernel_q8",
+            "launches": None, "max_abs_err": max(c["max_abs_err"] for c in mine),
+            **total,
+            "bound_by": "operations" if all(c["bound_by"] == "operations" for c in mine) else "bytes",
+            "library_ms": None,
+            "cudnn_sequence": "F.conv2d with bias, relu_, max_pool2d (three calls; no max_pool2d "
+                              "for the unpooled convs), bf16 channels-last",
+            "times_are": f"sums over the {len(mine)} calls of one 128-image encode at 224^2",
+            "per_call": mine,
+        })
+    records[0]["f32_conv3"] = f32
+    return records
+
+
+def phase_slice4(conv, agg, ext_bf16, centers, images):
+    """Phase 7, slice 4: the int8 trunk (bf16) -> VLAD-k256 -> retrieval on
+    slice 1's 128 images and centers, through the public entry points."""
+    from pyvisim_tpu_torch.encoders import VLADEncoder
+    from pyvisim_tpu_torch.features import DeepConvFeature
+    from pyvisim_tpu_torch.ops import KMeansCodebook, nearest_centroid, vlad_encode_batch
+
+    ext = DeepConvFeature("vgg16", image_size=224, dtype=torch.bfloat16, int8=True)
+    enc = VLADEncoder(ext, kmeans_model=KMeansCodebook(centers))
+    listed = list(images)
+    enc.encode(listed[:8])  # warm up
+    wrappers = {"k7": conv.conv3x3_relu_maxpool, "k8_pooled": conv.conv3x3_relu_maxpool_q8,
+                "k8_unpooled": conv.conv3x3_q8, "vlad": agg.vlad_aggregate_batched}
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = enc.encode(listed)
+    encode_s = time.perf_counter() - t0
+    per_encode = {name: w.launches for name, w in wrappers.items()}
+    log(f"slice 4: int8 encode of {B} images {encode_s * 1e3:.1f} ms, launches {per_encode}")
+    check(out.shape == (B, K * D), f"int8 encoding shape {out.shape}")
+    check(bool(np.isfinite(out).all()), "non-finite int8 encodings")
+    check(per_encode == {"k7": 2, "k8_pooled": 2, "k8_unpooled": 4, "vlad": 1},
+          f"one int8 encode ran {per_encode}")
+    self_retrieval(enc, images)
+    desc, _ = ext.extract_batch(images)
+    labels = nearest_centroid(desc.to(torch.float32), torch.from_numpy(centers).cuda())
+    non_empty = np.array([len(set(row)) for row in labels.cpu().numpy().tolist()])
+    worst = float(np.abs(np.linalg.norm(out.astype(np.float64), axis=1) - np.sqrt(non_empty)).max())
+    log(f"slice 4: norm vs sqrt(non-empty clusters) worst |diff| {worst:.2e}")
+    check(worst <= 1e-3, "int8 encoding norms do not match the non-empty cluster counts")
+    launches = {name: w.launches for name, w in wrappers.items()}
+    check(all(launches.values()), f"slice 4 did not launch every kernel: {launches}")
+
+    # The comparison with the float32 trunk and the measurements, outside
+    # the launch counts. JAX's gate (tests/test_features_deep.py:233): VLAD
+    # on 64 N(0, 1) centers, int8 against float32, cosine > 0.999 per image;
+    # and the descriptors themselves (196 x 512 per image), cosine > 0.999.
+    # Slice 1's centers lie among the descriptors, so near ties move labels
+    # there: their cosines are printed for the int8 and the bf16 trunk alike.
+    f32_ext = DeepConvFeature("vgg16", image_size=224, dtype=torch.float32)
+    descs = {name: e.extract_batch(images)[0].to(torch.float32)
+             for name, e in (("float32", f32_ext), ("int8", ext), ("bf16", ext_bf16))}
+    gate_centers = torch.from_numpy(
+        np.random.default_rng(0).normal(size=(64, D)).astype(np.float32)).cuda()
+    slice_centers = torch.from_numpy(centers).cuda()
+
+    def rows(name, cs=None):
+        if cs is None:
+            return descs[name][..., :-2].reshape(B, -1).cpu().numpy()
+        return vlad_encode_batch(descs[name], None, cs).cpu().numpy()
+
+    cos = {
+        "jax_gate_vlad64": cosine_rows(rows("int8", gate_centers), rows("float32", gate_centers)),
+        "descriptors": cosine_rows(rows("int8"), rows("float32")),
+        "slice1_centers": cosine_rows(rows("int8", slice_centers), rows("float32", slice_centers)),
+        "bf16_slice1_centers": cosine_rows(rows("bf16", slice_centers),
+                                           rows("float32", slice_centers)),
+        "bf16_descriptors": cosine_rows(rows("bf16"), rows("float32")),
+    }
+    log("slice 4: cosine against the float32 trunk per image, min/mean: " + ", ".join(
+        f"{name} {c.min():.6f}/{c.mean():.6f}" for name, c in cos.items()))
+    for name in ("jax_gate_vlad64", "descriptors"):
+        check(bool((cos[name] > 0.999).all()),
+              f"int8 and float32 trunks disagree ({name}): min cosine {cos[name].min()}")
+    dev_images = torch.from_numpy(images).cuda()
+    centers_dev = torch.from_numpy(centers).cuda()
+    ones = torch.ones((B, N), device="cuda")
+    with torch.inference_mode():
+        graph = lambda: vlad_encode_batch(  # noqa: E731
+            ext._forward(dev_images).to(torch.float32), ones, centers_dev)
+        numbers = {
+            "encode_e2e_img_per_s": images_per_s(enc, images),
+            "device_graph_ms": cuda_ms(graph, reps=3, rounds=5),
+            "int8_trunk_ms": cuda_ms(lambda: ext._forward(dev_images), reps=3, rounds=5),
+            "bf16_trunk_ms": cuda_ms(lambda: ext_bf16._forward(dev_images), reps=3, rounds=5),
+            "cosine_vs_f32_min": {name: float(c.min()) for name, c in cos.items()},
+            "launches_per_encode_of_128": per_encode,
+        }
+        numbers["device_graph_img_per_s"] = B / numbers["device_graph_ms"] * 1e3
+        log(json.dumps({"slice4": numbers, "launches": launches}))
+        log(json.dumps({"profile_int8": profile_device_graph(graph, top=14)}))
+        log(json.dumps({"profile_bf16_trunk": profile_device_graph(
+            lambda: ext_bf16._forward(dev_images), top=10)}))
+    return launches, numbers
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1156,6 +1403,7 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     from pyvisim_tpu_torch.ops.cuda import _build
     from pyvisim_tpu_torch.ops.cuda import aggregate as agg
+    from pyvisim_tpu_torch.ops.cuda import conv
     from pyvisim_tpu_torch.ops.cuda import gmm_stats as gs
     from pyvisim_tpu_torch.ops.cuda import lloyd_stats as ls
     from pyvisim_tpu_torch.ops.cuda import sift_window as sw
@@ -1166,6 +1414,7 @@ def main() -> int:
     gmm_kernel = phase_gmm_kernel(gs, shipped_gmm())
     lloyd_kernel = phase_lloyd_kernel(ls)
     sift_kernels = phase_sift_kernels(sw)
+    conv_kernels = phase_conv_kernels(conv)
     launches, encode_launches, centers, ext, images = phase_slice(agg)
     kernel["launches"] = launches
     kernel["launches_per_encode_of_128"] = encode_launches
@@ -1185,8 +1434,17 @@ def main() -> int:
         rec["launches_per_vlad_encode_of_64"] = numbers3["launches_per_vlad_encode_of_64"][rec["name"]]
     kernel["launches_slice3"] = launches3["vlad"]
     gmm_kernel["launches_slice3"] = launches3["gmm_stats"]
+    launches4, numbers4 = phase_slice4(conv, agg, ext, centers, images)
+    k7, k8 = conv_kernels
+    per_encode = numbers4["launches_per_encode_of_128"]
+    k7["launches"] = launches4["k7"]
+    k7["launches_per_encode_of_128"] = per_encode["k7"]
+    k8["launches"] = launches4["k8_pooled"] + launches4["k8_unpooled"]
+    k8["launches_pooled"], k8["launches_unpooled"] = launches4["k8_pooled"], launches4["k8_unpooled"]
+    k8["launches_per_encode_of_128"] = per_encode["k8_pooled"] + per_encode["k8_unpooled"]
+    kernel["launches_slice4"] = launches4["vlad"]
     log(f"total {time.perf_counter() - t0:.1f} s")
-    print(json.dumps({"kernels": [kernel, gmm_kernel, lloyd_kernel, *sift_kernels]}))
+    print(json.dumps({"kernels": [kernel, gmm_kernel, lloyd_kernel, *sift_kernels, k7, k8]}))
     print(json.dumps({
         "ok": True,
         "device": {

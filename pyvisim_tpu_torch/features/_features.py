@@ -219,7 +219,11 @@ class DeepConvFeature(FeatureExtractorBase):
     :param module: optional ``nn.Module`` mapping ``(B, 3, S, S)`` to a
         ``(B, C, Hf, Wf)`` map, used in place of the VGG trunk; ``params``,
         if given, is loaded into it.
-    :param int8: the int8 trunk is not ported yet and raises.
+    :param int8: route the middle VGG convs through int8 (dynamic symmetric
+        quantisation, per-image activation scales, per-channel weight
+        scales; trunk-encoding cosine vs float32 > 0.999), and each conv
+        followed by a pool through a fused conv + ReLU + pool kernel; see
+        ``models/vgg.py``. Ignored for custom modules.
     :param device: where the trunk runs; None means CUDA.
     """
 
@@ -244,6 +248,7 @@ class DeepConvFeature(FeatureExtractorBase):
         self.image_size = image_size
         self.transform = transform
         self.dtype = dtype
+        self.int8 = int8 and module is None
         if module is not None:
             if params is not None:
                 module.load_state_dict(params)
@@ -338,7 +343,8 @@ class DeepConvFeature(FeatureExtractorBase):
         """Preprocessed ``(B, S, S, 3)`` -> the trunk's ``(B, C, Hf, Wf)``."""
         inp = x.to(self.dtype).permute(0, 3, 1, 2)  # channels-last strides
         if self.dtype == torch.float32:
-            inp = inp.contiguous()
+            if not self.int8:  # the int8 trunk runs channels-last in every dtype
+                inp = inp.contiguous()
             # cuDNN runs float32 convs in TF32 unless told otherwise.
             flags = torch.backends.cudnn.flags(enabled=True, allow_tf32=False)
         else:

@@ -1,5 +1,6 @@
 """Model definitions in PyTorch (port of ``pyvisim_tpu/models``)."""
-from . import vgg
+from . import quant, vgg
+from .quant import QuantConv
 from .vgg import VGGConvFeatures, params_from_jax
 
-__all__ = ["vgg", "VGGConvFeatures", "params_from_jax"]
+__all__ = ["quant", "vgg", "QuantConv", "VGGConvFeatures", "params_from_jax"]

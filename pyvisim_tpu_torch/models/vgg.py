@@ -9,6 +9,15 @@ The trunk is an ``nn.Sequential`` named ``features`` with torchvision's
 layer indices (conv, ReLU, pool), so a torchvision VGG ``state_dict``
 loads into it as it is. Weights from the JAX package cross through
 :func:`params_from_jax`.
+
+With ``int8=True`` the trunk routes its convs as the JAX package's does
+(``pyvisim_tpu/models/vgg.py:95-99``): int8 where the conv's input height
+lies in [``int8_min_spatial``, ``int8_max_spatial``] and it has >= 64
+channels. Each conv that a pool follows runs fused with its ReLU and pool:
+kernel 8 (``ops.cuda.conv.conv3x3_relu_maxpool_q8``) where it is int8,
+kernel 7 (``conv3x3_relu_maxpool``) otherwise. The other int8 convs run
+through :class:`~.quant.QuantConv`, the other float convs through cuDNN.
+The int8 trunk runs channels-last in every dtype.
 """
 from __future__ import annotations
 
@@ -17,7 +26,11 @@ from typing import Dict, Mapping, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+from ..ops.cuda import conv as conv_ops
+from .quant import QuantConv
 
 __all__ = [
     "VGG_CFGS",
@@ -59,6 +72,60 @@ def _conv_feature_indices(cfg_name: str, layer_index: int):
     return out
 
 
+class Int8TrunkConv(QuantConv):
+    """One 3x3 conv of the int8 trunk with its ReLU, and with the 2x2 pool
+    that follows it when ``pool``; routed at run time by its input, as the
+    JAX package routes it at trace time:
+
+    - int8 (input height in [``min_spatial``, ``max_spatial``], >= 64
+      channels): kernel 8 with the pool, else ``QuantConv`` (kernel 8
+      without it);
+    - float with the pool: kernel 7, in the input's dtype with the float32
+      bias;
+    - float without it: cuDNN, then an in-place ReLU, with the bias in the
+      input's dtype, as ``nn.Conv2d`` adds it.
+
+    ``w_x (Cout, 3, 3, Cin)`` and ``bias_x`` are the float weight and bias
+    in the trunk's dtype, derived like ``wq``/``sw`` from the float32
+    masters, so ``Module.to(dtype)`` sets that dtype.
+    """
+
+    def __init__(self, in_channels: int, out_channels: int, pool: bool,
+                 min_spatial: int, max_spatial: int):
+        super().__init__(in_channels, out_channels, 3, 1, "SAME", relu=True)
+        self.pool = pool
+        self.min_spatial, self.max_spatial = min_spatial, max_spatial
+        self.register_buffer("w_x", torch.zeros(out_channels, 3, 3, in_channels), persistent=False)
+        self.register_buffer("bias_x", torch.zeros(out_channels), persistent=False)
+        self._derive()
+
+    @torch.no_grad()
+    def _derive(self) -> None:
+        super()._derive()
+        if getattr(self, "w_x", None) is not None:
+            dtype = self.w_x.dtype
+            self.w_x = self.weight.permute(0, 2, 3, 1).to(dtype).contiguous()
+            self.bias_x = self.bias.to(dtype)
+
+    def uses_int8(self, x: torch.Tensor) -> bool:
+        """The JAX package's predicate on an NCHW input."""
+        return self.min_spatial <= x.shape[2] <= self.max_spatial and x.shape[1] >= 64
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.uses_int8(x):
+            if not self.pool:
+                return super().forward(x)
+            y = conv_ops.conv3x3_relu_maxpool_q8(x.permute(0, 2, 3, 1), self.wq, self.sw, self.bias)
+        elif self.pool:
+            y = conv_ops.conv3x3_relu_maxpool(x.permute(0, 2, 3, 1), self.w_x, self.bias)
+        else:
+            return torch.relu_(F.conv2d(x, self.w_x.permute(0, 3, 1, 2), self.bias_x, padding=1))
+        return y.permute(0, 3, 1, 2)
+
+    def extra_repr(self) -> str:
+        return f"{super().extra_repr()}, pool={self.pool}"
+
+
 class VGGConvFeatures(nn.Module):
     """The convolutional trunk of a VGG network, truncated at ``layer_index``.
 
@@ -66,6 +133,14 @@ class VGGConvFeatures(nn.Module):
     conv layer ``layer_index`` (negative indices allowed). The ReLUs run in
     place, which saves one activation per layer; nothing else reads the
     conv outputs.
+
+    ``int8``: route the middle convs through int8 (see the module
+    docstring); ``int8_min_spatial``/``int8_max_spatial`` bound the input
+    height of an int8 conv, as in the JAX package. Each conv position then
+    holds an :class:`Int8TrunkConv` and the ReLU and pool positions it fuses
+    hold ``nn.Identity``, so the ``features.{i}`` keys stay torchvision's.
+    The input must be channels-last on CUDA. ``int8=False`` is the plain
+    cuDNN trunk.
 
     ``generator``: the default initialisation draws, as Flax's ``nn.Conv``
     does, lecun-normal kernels (truncated normal, fan-in scaling) and zero
@@ -79,12 +154,10 @@ class VGGConvFeatures(nn.Module):
         layer_index: int = -1,
         int8: bool = False,
         generator: torch.Generator | None = None,
+        int8_min_spatial: int = 28,
+        int8_max_spatial: int = 56,
     ):
         super().__init__()
-        if int8:
-            raise NotImplementedError(
-                "The int8 VGG trunk is not ported to PyTorch yet; use float32 or bfloat16."
-            )
         n_convs = num_conv_layers(cfg_name)
         if not -n_convs <= layer_index < n_convs:
             raise IndexError(
@@ -94,13 +167,20 @@ class VGGConvFeatures(nn.Module):
         self.cfg_name = cfg_name
         self.layer_index = layer_index
         target = layer_index % n_convs
+        cfg = VGG_CFGS[cfg_name]
         layers, in_ch, conv_i = [], 3, 0
-        for item in VGG_CFGS[cfg_name]:
+        for pos, item in enumerate(cfg):
             if item == "M":
-                layers.append(nn.MaxPool2d(2, 2))
+                layers.append(nn.Identity() if int8 else nn.MaxPool2d(2, 2))
                 continue
-            layers.append(nn.Conv2d(in_ch, item, 3, padding=1))
-            layers.append(nn.ReLU(inplace=True))
+            if int8:
+                # The trunk ends at its target conv, before any pool after it.
+                pool = conv_i != target and pos + 1 < len(cfg) and cfg[pos + 1] == "M"
+                layers.append(Int8TrunkConv(in_ch, item, pool, int8_min_spatial, int8_max_spatial))
+                layers.append(nn.Identity())
+            else:
+                layers.append(nn.Conv2d(in_ch, item, 3, padding=1))
+                layers.append(nn.ReLU(inplace=True))
             in_ch = item
             if conv_i == target:
                 break
@@ -113,19 +193,22 @@ class VGGConvFeatures(nn.Module):
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         for m in self.features:
-            if isinstance(m, nn.Conv2d):
-                fan_in = m.in_channels * m.kernel_size[0] * m.kernel_size[1]
+            if isinstance(m, (nn.Conv2d, QuantConv)):
+                fan_in = m.weight[0].numel()
                 # Flax lecun_normal: variance 1/fan_in after truncation at +-2 std.
                 std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
                 w = torch.empty(m.weight.shape)
                 nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
                 m.weight.copy_(w * std)
                 m.bias.zero_()
+                if isinstance(m, QuantConv):
+                    m._derive()
 
     def load_params(self, state_dict: Mapping) -> None:
         """Load a torchvision-named state dict (tensors or numpy arrays):
         a full torchvision VGG's, whose keys beyond this trunk are ignored,
-        or :func:`params_from_jax`'s. A missing trunk key raises."""
+        or :func:`params_from_jax`'s. A missing trunk key raises. An int8
+        trunk re-quantises its weights from the loaded float32 values."""
         own = self.state_dict()
         self.load_state_dict(
             {k: torch.as_tensor(v) for k, v in state_dict.items() if k in own}

@@ -2,7 +2,8 @@
 
 Port of ``pyvisim_tpu/ops`` for deep features and SIFT/RootSIFT (``ops.sift``)
 -> VLAD / Fisher vectors -> retrieval and vocabulary training. The TPU kernels on those paths are CUDA
-kernels in ``ops/cuda``.
+kernels in ``ops/cuda``, the fused conv + ReLU + pool kernels of the int8
+VGG trunk (``ops.cuda.conv``) among them.
 """
 from .codebooks import (
     GmmCodebook,

@@ -11,6 +11,8 @@ import torch
 
 import numpy as np
 
+from pyvisim_tpu_torch.models import QuantConv
+from pyvisim_tpu_torch.models import vgg as tvgg
 from pyvisim_tpu_torch.ops import fisher as tfisher
 from pyvisim_tpu_torch.ops import gmm as tgmm
 from pyvisim_tpu_torch.ops import kmeans as tkmeans
@@ -18,6 +20,7 @@ from pyvisim_tpu_torch.ops import sift as tsift
 from pyvisim_tpu_torch.ops import vlad as tvlad
 from pyvisim_tpu_torch.ops.codebooks import GmmCodebook
 from pyvisim_tpu_torch.ops.cuda import aggregate as tagg
+from pyvisim_tpu_torch.ops.cuda import conv as tconv
 from pyvisim_tpu_torch.ops.cuda import gmm_stats as tgs
 from pyvisim_tpu_torch.ops.cuda import lloyd_stats as tls
 from pyvisim_tpu_torch.ops.cuda import sift_window as tsw
@@ -413,3 +416,124 @@ def test_window_kernels_all_invalid_and_refusals(cuda_device, atlases):
         tsw.refine(dog, *cand, ok.cpu(), **REFINE_KW)
     with pytest.raises(ValueError):
         tsw.refine(dog[:, :4].contiguous(), *cand, ok, **REFINE_KW)
+
+
+# ---- kernels 7 and 8: fused 3x3 conv + ReLU (+ 2x2 pool), float and int8 ----
+
+
+# (B, H, W, Cin, Cout): odd H and W, Cin = 3, one image, Cout at the
+# wrappers' smallest multiple, a Cin that is no multiple of 8, several
+# channel chunks and channel blocks.
+CONV_SHAPES = [
+    (1, 9, 13, 3, 64), (2, 34, 20, 64, 128), (1, 17, 16, 20, 64), (3, 32, 48, 160, 192),
+    (1, 1, 5, 8, 64),
+]
+
+
+def _conv_inputs(shape, dtype, device, seed=0):
+    b, h, w, ci, co = shape
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(b, h, w, ci, generator=g)
+    wt = torch.randn(co, 3, 3, ci, generator=g) / (9 * ci) ** 0.5
+    bias = 0.1 * torch.randn(co, generator=g)
+    return x.to(device, dtype), wt.to(device), bias.to(device)
+
+
+def _bf16_ulp(t):
+    """One bfloat16 step at each value of t (8 significant bits)."""
+    _, exp = torch.frexp(t.float())
+    return torch.ldexp(torch.ones_like(t, dtype=torch.float32), exp - 8)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("shape", CONV_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_conv_relu_pool_kernel_matches_plain_version(cuda_device, shape, dtype):
+    x, wt, bias = _conv_inputs(shape, dtype, cuda_device)
+    before = tconv.conv3x3_relu_maxpool.launches
+    got = tconv.conv3x3_relu_maxpool(x, wt.to(dtype), bias)
+    again = tconv.conv3x3_relu_maxpool(x, wt.to(dtype), bias)
+    want = tconv.conv3x3_relu_maxpool_reference(x, wt, bias)
+    torch.cuda.synchronize()
+    b, h, w, _, co = shape
+    assert got.shape == (b, h // 2, w // 2, co) and got.dtype == dtype
+    assert torch.equal(got, again)
+    if got.numel():
+        assert tconv.conv3x3_relu_maxpool.launches == before + 2
+    diff = (got.float() - want.float()).abs()
+    if not got.numel():
+        return
+    if dtype == torch.float32:
+        # f32 sums in another order than cuDNN's (TF32 off).
+        assert diff.max().item() <= 1e-5 * want.abs().max().item() + 1e-6
+    else:
+        # Products are exact in both; the f32 sums differ in order, so a
+        # value near a bf16 rounding boundary may round one step apart.
+        assert bool((diff <= _bf16_ulp(want) + 1e-6).all())
+        assert (diff == 0).float().mean().item() >= 0.99
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("shape", CONV_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_q8_kernel_matches_plain_version_bit_for_bit(cuda_device, shape, dtype):
+    x, wt, bias = _conv_inputs(shape, dtype, cuda_device, seed=1)
+    x[0] *= 3.0  # images on different scales
+    wq, sw = tconv.quantize_weight(wt)
+    wq = wq.contiguous()
+    for pool, relu, b in ((True, True, bias), (False, True, bias), (False, False, None)):
+        if pool:
+            got, acc = tconv.conv3x3_relu_maxpool_q8(x, wq, sw, b, return_acc=True)
+            again = tconv.conv3x3_relu_maxpool_q8(x, wq, sw, b)
+        else:
+            got, acc = tconv.conv3x3_q8(x, wq, sw, b, relu=relu, return_acc=True)
+            again = tconv.conv3x3_q8(x, wq, sw, b, relu=relu)
+        want, want_acc = tconv.conv3x3_q8_reference(x, wq, sw, b, pool=pool, relu=relu,
+                                                    return_acc=True)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape and got.dtype == dtype
+        assert torch.equal(acc, want_acc), (pool, relu)
+        assert torch.equal(got, want), (pool, relu)
+        assert torch.equal(got, again)
+
+
+def test_conv_wrappers_refuse_what_they_do_not_take(cuda_device):
+    x, wt, bias = _conv_inputs((2, 8, 8, 64, 64), torch.bfloat16, cuda_device)
+    wq, sw = tconv.quantize_weight(wt)
+    wq = wq.contiguous()
+    with pytest.raises(ValueError):  # Cout not a multiple of 64
+        tconv.conv3x3_relu_maxpool(x, wt[:32].contiguous(), bias[:32])
+    with pytest.raises(ValueError):
+        tconv.conv3x3_q8(x, wq[:32].contiguous(), sw[:32], bias[:32])
+    nchw = x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)  # not contiguous NHWC
+    with pytest.raises(ValueError):
+        tconv.conv3x3_relu_maxpool(nchw, wt, bias)
+    with pytest.raises(ValueError):
+        tconv.conv3x3_relu_maxpool_q8(nchw, wq, sw, bias)
+    with pytest.raises(TypeError):
+        tconv.conv3x3_relu_maxpool(x, wq, bias)
+    with pytest.raises(TypeError):
+        tconv.conv3x3_relu_maxpool(x.half(), wt, bias)
+    with pytest.raises(ValueError):
+        tconv.conv3x3_q8(x, wq, sw.cpu(), bias)
+    layer = QuantConv(64, 64, kernel_size=3, stride=2).to(cuda_device)
+    with pytest.raises(NotImplementedError):
+        layer(x.permute(0, 3, 1, 2))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_int8_trunk_on_card_matches_cpu(cuda_device, dtype):
+    """VGG16's int8 trunk at 64^2: conv1/6/9 through kernel 7, conv3
+    through pooled kernel 8, conv2 through QuantConv, the rest cuDNN."""
+    x = torch.rand(2, 3, 64, 64, generator=torch.Generator().manual_seed(3))
+    x = x.contiguous(memory_format=torch.channels_last)
+    model = tvgg.VGGConvFeatures("vgg16", int8=True).eval()
+    with torch.no_grad():
+        want = model.to(dtype)(x.to(dtype)).float()
+        counts = [f.launches for f in (tconv.conv3x3_relu_maxpool,
+                                       tconv.conv3x3_relu_maxpool_q8, tconv.conv3x3_q8)]
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            got = model.to(cuda_device)(x.to(cuda_device, dtype)).float().cpu()
+    after = [f.launches for f in (tconv.conv3x3_relu_maxpool,
+                                  tconv.conv3x3_relu_maxpool_q8, tconv.conv3x3_q8)]
+    assert [a - c for a, c in zip(after, counts)] == [3, 1, 1]
+    cos = torch.nn.functional.cosine_similarity(got.flatten(1), want.flatten(1))
+    assert bool((cos > (0.9999 if dtype == torch.float32 else 0.999)).all()), cos

@@ -41,11 +41,12 @@ _FORBIDDEN = re.compile(
 )
 
 
-# The card's machine has no JAX: the port, chip_smoke.py and the tests run
-# there must not import it.
+# The card's machine has no JAX: the port, chip_smoke.py, conv_probe.py and
+# the tests run there must not import it.
 SCOPES = {
     "package": lambda: sorted(PORT.rglob("*.py")),
     "chip_smoke": lambda: [REPO / "chip_smoke.py"],
+    "conv_probe": lambda: [REPO / "conv_probe.py"],
     "card_tests": lambda: [REPO / "tests" / "test_torch_cuda.py"],
 }
 

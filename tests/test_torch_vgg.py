@@ -69,11 +69,6 @@ def test_default_init_draws_flax_distributions():
     assert t.weight.abs().max().item() <= 2.0 * np.sqrt(1 / (9 * 512)) / 0.8796 + 1e-6
 
 
-def test_int8_trunk_is_not_ported_yet():
-    with pytest.raises(NotImplementedError):
-        tvgg.VGGConvFeatures("vgg16", int8=True)
-
-
 @pytest.fixture(scope="module")
 def extractors(jax_params):
     jext = JDeepConvFeature(params=jax_params, image_size=64)
