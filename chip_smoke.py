@@ -36,7 +36,8 @@ Phases, each of which raises on a failed check:
       bit for bit, kernel 7 within one bf16 step and exact on >= 99 % of
       entries; kernel 7 in float32 at conv3's shape to 1e-5 * max|ref|;
       each kernel's two calls bit-equal. Timed beside the cuDNN sequence
-      conv2d + relu_ + max_pool2d at the same shape.
+      conv2d + relu_ + max_pool2d at the same shape; each kernel-8 call's
+      time is also split into its per-image amax, quantise pass and conv.
 3. Slice 1: ``VLADEncoder(DeepConvFeature("vgg16", 224, bf16))`` with
    K=256 on 128 images, then retrieval of 8 of them from a gallery of all
    128.
@@ -1214,6 +1215,27 @@ def bf16_ulp(t: torch.Tensor) -> torch.Tensor:
     return torch.ldexp(torch.ones_like(t, dtype=torch.float32), exp - 8)
 
 
+def q8_parts(conv, x, wq, sw, bias, pool: bool) -> dict:
+    """Kernel 8's launches as separate calls on the same inputs, to time one
+    call apart: the per-image amax (with the scale formed from it), the
+    quantise pass and the conv kernel on the quantised x. (The packed
+    weights are built once per weight tensor and kept.)"""
+    lib = conv._library()
+    dev, stream = conv.launch_target(x.device)
+    sx = conv._scale_launch(lib, x, dev, stream)
+    xq = conv._quantize_launch(lib, x, sx, dev, stream)
+    wp = conv.pack_q8_weights(wq)
+    b, h, w, _ = x.shape
+    out = torch.empty((b, h // 2, w // 2, wq.shape[0]) if pool else (b, h, w, wq.shape[0]),
+                      dtype=x.dtype, device=x.device)
+    return {
+        "amax": lambda: conv._scale_launch(lib, x, dev, stream),
+        "quantise": lambda: conv._quantize_launch(lib, x, sx, dev, stream),
+        "conv": lambda: conv._conv_launch(lib, xq, wp, sw, sx, bias, out, None, pool=pool,
+                                          relu=True, dev=dev, stream=stream),
+    }
+
+
 def check_conv_call(conv, layer, hw, cin, cout, route, dtype=torch.bfloat16) -> dict:
     """One fused conv of the trunk at B=128 against its plain version on the
     first 16 images; its time, the plain version's and the cuDNN sequence's
@@ -1271,11 +1293,16 @@ def check_conv_call(conv, layer, hw, cin, cout, route, dtype=torch.bfloat16) -> 
         rec["ms"] = cuda_ms(run, reps=5, rounds=5)
         rec["plain_ms"] = cuda_ms(plain, reps=1, rounds=3, warmup=1)
         rec["cudnn_sequence_ms"] = cuda_ms(seq, reps=5, rounds=5)
+    if route != "k7":
+        parts = q8_parts(conv, x, wq, sw.to(torch.float32), bias, pool)
+        rec["split_ms"] = {name: cuda_ms(fn, reps=5, rounds=5) for name, fn in parts.items()}
     rec.update(conv_bound(B, hw, cin, cout, route, dtype))
+    split = rec.get("split_ms")
     log(f"conv {layer} {route} {rec['dtype']}: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f}, "
         f"cuDNN sequence {rec['cudnn_sequence_ms']:.4f}, bound {rec['bound_ms']:.4f} "
         f"({rec['bound_by']}, {rec['gop']:.1f} GOP, {rec['mb']:.1f} MB); max|diff| "
-        f"{rec['max_abs_err']:.3e}" + (f", exact {rec['exact_share']:.6f}" if "exact_share" in rec else ""))
+        f"{rec['max_abs_err']:.3e}" + (f", exact {rec['exact_share']:.6f}" if "exact_share" in rec else "")
+        + ("; split " + ", ".join(f"{k} {v:.4f}" for k, v in split.items()) if split else ""))
     return rec
 
 
@@ -1291,6 +1318,8 @@ def phase_conv_kernels(conv):
         mine = [c for c in calls if c["route"] in routes]
         total = {key: sum(c[key] for c in mine) for key in
                  ("ms", "plain_ms", "cudnn_sequence_ms", "bound_ms")}
+        if "split_ms" in mine[0]:
+            total["split_ms"] = {k: sum(c["split_ms"][k] for c in mine) for k in mine[0]["split_ms"]}
         records.append({
             "name": name, "route": "cuda", "source": "pyvisim_tpu_torch/csrc/conv.cu",
             "replaces": f"pyvisim_tpu/ops/pallas/conv.py:{line}",

@@ -2,12 +2,21 @@
 """Where the time of the fused conv kernels goes, on one CUDA card.
 
 Builds ``pyvisim_tpu_torch/csrc/conv.cu`` as it is and three copies of it
-with one part removed each (the ``mma`` instructions, the staging copies,
-the output stores), then times each at the int8 VGG16 trunk's shapes
-(B=128, 224^2 input): kernel 7 at conv1, kernel 8 at conv5 and, pooled,
-at conv9; and the per-image amax that precedes kernel 8. The copies
-compute wrong values: only their times mean something. Run from a
-checkout:
+with one part removed each, then times each at the int8 VGG16 trunk's
+shapes (B=128, 224^2 input): kernel 7 at conv1, kernel 8's conv kernel
+alone (on x already quantised, weights already packed) at conv5 and,
+pooled, at conv9. The parts removed:
+
+- "no mma": kernel 7's ``mma.sync`` instructions and kernel 8's ``wgmma``
+  instructions;
+- "no staging": kernel 7's ``cp.async`` copies, and kernel 8's TMA and bulk
+  copies (its barriers still complete, on zero bytes);
+- "no stores": the stores of the output tile to device memory, in both.
+
+The copies compute wrong values: only their times mean something. Kernel
+8's other launches, the per-image amax and the quantise pass, and the
+packing of its weights (once per weight tensor), are timed apart at both
+shapes. Run from a checkout:
 
     python3 conv_probe.py
 """
@@ -24,13 +33,23 @@ from pyvisim_tpu_torch.ops.cuda import _build, conv
 
 VARIANTS = {
     "as built": [],
-    "no mma": [("mma_s8(acc[i][j], a, bf[j]);", "acc[i][j][0] ^= a[0] ^ bf[j][0];"),
+    "no mma": [("        wgmma_s8_64x64(acc[sub], da, db);",
+                "        acc[sub][0] += static_cast<int>(da ^ db);"),
                ("mma_bf16(acc[i][j], a, bf[j]);",
                 "acc[i][j][0] += __uint_as_float(a[0] ^ bf[j][0]);")],
-    "no staging": [("      cp_async16(dst, src, inside);", ""),
+    "no staging": [("  mbar_expect_tx(&full[s], kQ8TxBytes);\n"
+                    "  for (int j = 0; j < kQ8Blocks; ++j)\n"
+                    "    tma_load_4d(st + j * kQ8PlaneStride, tm_x, kQ8Chunk * c + 16 * j, "
+                    "ox0 - 1, oy0 - 1, b,\n"
+                    "                &full[s]);\n"
+                    "  bulk_load(st + kQ8ABytes, w_tile + static_cast<size_t>(c) * kQ8BBytes, "
+                    "kQ8BBytes, &full[s]);\n",
+                    "  mbar_expect_tx(&full[s], 0);\n"),
+                   ("      cp_async16(dst, src, inside);", ""),
                    ("      cp_async16(dst, src, ci < Cin);", "")],
-    "no stores": [("  store_tile<POOL>(ep, out, b, oy0, ox0, n0, H, W, Cout);", ""),
-                  ("  store_tile<true>(ep, out, b, oy0, ox0, n0, H, W, Cout);", "")],
+    "no stores": [("    *reinterpret_cast<uint4*>(out + at) = "
+                   "*reinterpret_cast<const uint4*>(ep + pix * kEp + piece * kVec);", ""),
+                  ("  store_pooled(ep, out, b, oy0, ox0, n0, H, W, Cout);", "")],
 }
 SHAPES = [("conv1", 224, 64, 64, "k7"), ("conv5", 56, 256, 256, "k8"), ("conv9", 28, 512, 512, "k8p")]
 
@@ -79,16 +98,20 @@ def main() -> int:
         bias = torch.zeros(cout, device="cuda")
         wq, sw = conv.quantize_weight(w)
         wq, wx = wq.contiguous(), w.to(torch.bfloat16)
-        calls = {"k7": lambda: conv.conv3x3_relu_maxpool(x, wx, bias),
-                 "k8": lambda: conv.conv3x3_q8(x, wq, sw, bias),
-                 "k8p": lambda: conv.conv3x3_relu_maxpool_q8(x, wq, sw, bias)}
         for name, lib in libs.items():
             conv.load_library = lambda _name, lib=lib: lib
-            ms = chip_smoke.cuda_ms(calls[route], reps=5, rounds=5)
+            if route == "k7":
+                call = lambda: conv.conv3x3_relu_maxpool(x, wx, bias)  # noqa: E731
+            else:
+                call = chip_smoke.q8_parts(conv, x, wq, sw, bias, route == "k8p")["conv"]
+            ms = chip_smoke.cuda_ms(call, reps=5, rounds=5)
             print(f"{layer} {route} {name}: {ms:.4f} ms")
         if route != "k7":
-            ms = chip_smoke.cuda_ms(lambda: conv.activation_scale(x), reps=5, rounds=5)
-            print(f"{layer} per-image amax: {ms:.4f} ms")
+            parts = chip_smoke.q8_parts(conv, x, wq, sw, bias, route == "k8p")
+            parts["pack_weights (once per weight tensor)"] = lambda: conv.pack_q8_weights(wq)
+            for part in ("amax", "quantise", "pack_weights (once per weight tensor)"):
+                ms = chip_smoke.cuda_ms(parts[part], reps=5, rounds=5)
+                print(f"{layer} {route} {part}: {ms:.4f} ms")
     return 0
 
 

@@ -351,19 +351,27 @@ __global__ void __launch_bounds__(kOriThreads)
 
 // ---------------------------------------------------------------------------
 // Kernel C: descriptor (OpenCV calcSIFTDescriptor). One block of 128
-// threads per keypoint; thread t owns output bin (t/32, t/8 % 4, t % 8).
-// Per window pixel (|ii|, |jj| <= min(class radius,
-// round(3 scl sqrt2 5/2)), in the image) the block stages the rotated
-// bin coordinates, the wrapped orientation bin and the Gaussian-weighted
-// magnitude; then each thread walks the staged pixels in order and adds
-// round(hat_r hat_c mag) * round(hat_o), both factors rounded to the
-// atlas' type as the reference's contraction does, so every product is
-// exact and only the order of the f32 sums differs from it. Orientation
-// bin 8 folds onto 0 (bin 9 is always empty). Then the 0.2 clip, the
-// rescale to 512, the cap at 255 and round-half-even; invalid keypoints
-// get zeros.
+// threads per keypoint, pixel-parallel. Window pixels (|ii|, |jj| <=
+// min(class radius, round(3 scl sqrt2 5/2))) are dealt to the threads
+// round-robin in row-major order. A thread computes its pixel's rotated
+// bin coordinates; a pixel in the image and inside the rotated 4x4 region
+// reads its magnitude and angle and adds its <= 8 trilinear terms
+// round(hat_r hat_c mag) * round(hat_o) into the thread's own 4x4x8
+// histogram in shared memory (orientation bin 8 folds onto 0; bin 9 is
+// always empty). Both factors are rounded to the atlas' type as the
+// reference's contraction does, so every product is exact and only the
+// order of the f32 sums differs from it. Other pixels cost no histogram
+// work: the work grows with the terms that exist, not with 128 bins per
+// window pixel.
+// Thread t then sums bin t over the 128 private histograms in a fixed
+// order, so the result repeats bit for bit; the histograms are stored
+// bin-major, hist[bin][thread], so that the adds and the sums meet no
+// bank conflicts. Then the 0.2 clip, the rescale to 512, the cap at 255
+// and round-half-even; invalid keypoints get zeros.
 // ---------------------------------------------------------------------------
 constexpr int kDescThreads = 128;
+constexpr int kDescBins = 128;
+constexpr int kDescSmemBytes = kDescBins * kDescThreads * 4;  // 65,536
 
 __device__ __forceinline__ float hat(float x) { return fmaxf(0.0f, 1.0f - fabsf(x)); }
 
@@ -387,7 +395,7 @@ __global__ void __launch_bounds__(kDescThreads)
                       const float* __restrict__ theta, const int* __restrict__ radius,
                       const unsigned char* __restrict__ valid, float* __restrict__ desc,
                       WindowParams p) {
-  __shared__ float s_rb[kTile], s_cb[kTile], s_po[kTile], s_m[kTile];
+  extern __shared__ float s_hist[];  // [kDescBins][kDescThreads]: one histogram a thread
   __shared__ float s_red[kDescThreads / 32];
   const int k = blockIdx.x;
   const int t = threadIdx.x;
@@ -407,53 +415,65 @@ __global__ void __launch_bounds__(kDescThreads)
   const int side = 2 * rad + 1;
   const int n_pix = side * side;
   const T* plane = atlas + kp.plane;
-  const float kr = static_cast<float>(t / 32 + 1);  // extended spatial bins 1..4
-  const float kc = static_cast<float>((t / 8) % 4 + 1);
-  const int o = t % 8;
-  const float ko = static_cast<float>(o);
-  float acc = 0.0f, acc_wrap = 0.0f;
-  for (int base = 0; base < n_pix; base += kTile) {
-    const int count = min(kTile, n_pix - base);
-    for (int q = t; q < count; q += kDescThreads) {
-      const int pix = base + q;
-      const int ii = pix / side - rad, jj = pix % side - rad;
-      const int rr = kp.r + ii, cc = kp.c + jj;
-      float rb1 = -8.0f, cb1 = -8.0f, pos_o = 0.0f, m = 0.0f;  // out of image: no bin
-      if (rr >= 1 && rr < kp.h - 1 && cc >= 1 && cc < kp.w - 1) {
-        const long long at = (static_cast<long long>(rr) * kp.w + cc) * 2;
-        const float mag = AtlasType<T>::load(plane + at);
-        const float ang = AtlasType<T>::load(plane + at + 1);
-        const float fi = static_cast<float>(ii), fj = static_cast<float>(jj);
-        const float c_rot = fj * cos_t - fi * sin_t;
-        const float r_rot = fj * sin_t + fi * cos_t;
-        const float rbin = r_rot + 2.0f - 0.5f;
-        const float cbin = c_rot + 2.0f - 0.5f;
-        const bool inside = rbin > -1.0f && rbin < 4.0f && cbin > -1.0f && cbin < 4.0f;
-        const float obin = (ang - th) * 1.2732395447351628f;
-        const float wgt = expf((c_rot * c_rot + r_rot * r_rot) * -0.125f);
-        m = mag * wgt * (inside ? 1.0f : 0.0f);
-        pos_o = obin - 8.0f * floorf(obin * 0.125f);
-        rb1 = rbin + 1.0f;
-        cb1 = cbin + 1.0f;
-      }
-      s_rb[q] = rb1;
-      s_cb[q] = cb1;
-      s_po[q] = pos_o;
-      s_m[q] = m;
+  float* hist = s_hist + t;  // bin b of this thread's histogram at hist[b * kDescThreads]
+  for (int b = 0; b < kDescBins; ++b) hist[b * kDescThreads] = 0.0f;
+  for (int q = t; q < n_pix; q += kDescThreads) {
+    const int ii = q / side - rad, jj = q % side - rad;
+    const int rr = kp.r + ii, cc = kp.c + jj;
+    if (rr < 1 || rr >= kp.h - 1 || cc < 1 || cc >= kp.w - 1) continue;
+    const float fi = static_cast<float>(ii), fj = static_cast<float>(jj);
+    const float c_rot = fj * cos_t - fi * sin_t;
+    const float r_rot = fj * sin_t + fi * cos_t;
+    const float rbin = r_rot + 2.0f - 0.5f;
+    const float cbin = c_rot + 2.0f - 0.5f;
+    if (!(rbin > -1.0f && rbin < 4.0f && cbin > -1.0f && cbin < 4.0f)) continue;
+    const long long at = (static_cast<long long>(rr) * kp.w + cc) * 2;
+    const float mag = AtlasType<T>::load(plane + at);
+    const float ang = AtlasType<T>::load(plane + at + 1);
+    const float obin = (ang - th) * 1.2732395447351628f;
+    const float wgt = expf((c_rot * c_rot + r_rot * r_rot) * -0.125f);
+    const float m = mag * wgt;
+    const float pos_o = obin - 8.0f * floorf(obin * 0.125f);  // in [0, 8]
+    const float rb1 = rbin + 1.0f, cb1 = cbin + 1.0f;         // in (0, 5)
+    const int r0 = static_cast<int>(floorf(rb1)), c0 = static_cast<int>(floorf(cb1));
+    const int o0 = static_cast<int>(floorf(pos_o));
+    // The two orientation bins the pixel reaches, 8 folded onto 0; a bin
+    // past 8 gets no term (its hat is 0).
+    float ho[2];
+    int ob[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int ko = o0 + e;
+      ho[e] = ko >= 0 && ko <= 8 ? AtlasType<T>::round(hat(pos_o - static_cast<float>(ko))) : 0.0f;
+      ob[e] = ko == 8 ? 0 : max(ko, 0);
     }
-    __syncthreads();
-    for (int q = 0; q < count; ++q) {
-      const float hr = hat(s_rb[q] - kr);
+#pragma unroll
+    for (int er = 0; er < 2; ++er) {
+      const int kr = r0 + er;  // extended spatial bins 1..4
+      if (kr < 1 || kr > 4) continue;
+      const float hr = hat(rb1 - static_cast<float>(kr));
       if (hr == 0.0f) continue;
-      const float hc = hat(s_cb[q] - kc);
-      if (hc == 0.0f) continue;
-      const float a = AtlasType<T>::round(hr * hc * s_m[q]);
-      acc += a * AtlasType<T>::round(hat(s_po[q] - ko));
-      if (o == 0) acc_wrap += a * AtlasType<T>::round(hat(s_po[q] - 8.0f));
+#pragma unroll
+      for (int ec = 0; ec < 2; ++ec) {
+        const int kc = c0 + ec;
+        if (kc < 1 || kc > 4) continue;
+        const float hc = hat(cb1 - static_cast<float>(kc));
+        if (hc == 0.0f) continue;
+        const float a = AtlasType<T>::round(hr * hc * m);
+        float* cell = hist + ((kr - 1) * 4 + (kc - 1)) * 8 * kDescThreads;
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (ho[e] != 0.0f) cell[ob[e] * kDescThreads] += a * ho[e];
+      }
     }
-    __syncthreads();
   }
-  float v = o == 0 ? acc + acc_wrap : acc;
+  __syncthreads();
+  // Thread t sums bin t over the 128 histograms, each lane starting at its
+  // own offset (no bank conflicts); the order is fixed, so the sum repeats.
+  const float* bin = s_hist + t * kDescThreads;
+  const int lane = t & 31;
+  float v = 0.0f;
+  for (int j = 0; j < kDescThreads; ++j) v += bin[(j + lane) & (kDescThreads - 1)];
   const float thr = sqrtf(block_sum(v * v, s_red)) * 0.2f;
   v = fminf(v, thr);
   const float scale = 512.0f / fmaxf(sqrtf(block_sum(v * v, s_red)), 1e-12f);
@@ -478,7 +498,10 @@ cudaError_t launch_descriptor(const void* atlas, const long long* octaves, const
                               const int* col, const float* scl, const float* theta,
                               const int* radius, const unsigned char* valid, float* desc,
                               WindowParams p, cudaStream_t stream) {
-  descriptor_kernel<T><<<p.n, kDescThreads, 0, stream>>>(
+  const cudaError_t err = cudaFuncSetAttribute(
+      descriptor_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, kDescSmemBytes);
+  if (err != cudaSuccess) return err;
+  descriptor_kernel<T><<<p.n, kDescThreads, kDescSmemBytes, stream>>>(
       static_cast<const T*>(atlas), octaves, img, octave, layer, row, col, scl, theta, radius,
       valid, desc, p);
   return cudaGetLastError();

@@ -18,7 +18,11 @@ its reciprocal (``conv.py:242-246``), which can move a value by one step.
 Bound, per 128 images at 224^2 (VGG16): kernel 7 at conv1 and conv3 is
 473.5 GFLOP, 0.48 ms at the card's bf16 rate; kernel 8 is 473.5 or 236.8
 GOP, 0.24 or 0.12 ms at its int8 rate. Operations bound all of them; see
-the source for the design.
+the source for the design. A kernel-8 call is three launches: each
+image's max |x|, the quantise pass (into ``(B, H, W, Cp)`` int8, Cin
+padded with zeros to a multiple of 32) and the conv on ``wgmma``, which
+reads the weights in the layout of :func:`pack_q8_weights`, built once
+per weight tensor.
 """
 from __future__ import annotations
 
@@ -41,14 +45,21 @@ __all__ = [
     "conv3x3_relu_maxpool",
     "conv3x3_relu_maxpool_q8",
     "conv3x3_q8",
+    "pack_q8_weights",
 ]
 
 # A kernel block computes 64 output channels; the wrappers take multiples of it.
 _COUT_MULTIPLE = 64
+# Kernel 8's k-step in input channels: it pads Cin to a multiple of it.
+_K_STEP = 32
 
 
 def _scale_shape(t: torch.Tensor) -> tuple:
     return (-1,) + (1,) * (t.dim() - 1)
+
+
+def _scale_from_amax(amax: torch.Tensor) -> torch.Tensor:
+    return torch.clamp_min(amax / 127.0, 1e-8)
 
 
 def activation_scale(x: torch.Tensor) -> torch.Tensor:
@@ -56,7 +67,7 @@ def activation_scale(x: torch.Tensor) -> torch.Tensor:
     amax = torch.linalg.vector_norm(
         x, ord=math.inf, dim=tuple(range(1, x.dim())), dtype=torch.float32
     )
-    return torch.clamp_min(amax / 127.0, 1e-8)
+    return _scale_from_amax(amax)
 
 
 def _quantize(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -190,7 +201,11 @@ def _library() -> ctypes.CDLL:
         lib.conv_pool_bf16.restype = i32
         lib.conv_pool_f32.argtypes = [ptr] * 4 + [i32] * 6 + [ptr]
         lib.conv_pool_f32.restype = i32
-        lib.conv_q8.argtypes = [ptr, i32] + [ptr] * 7 + [i32] * 8 + [ptr]
+        lib.conv_q8_amax.argtypes = [ptr, i32, ptr] + [i32] * 5 + [ptr]
+        lib.conv_q8_amax.restype = i32
+        lib.conv_q8_quantize.argtypes = [ptr, i32, ptr, ptr] + [i32] * 6 + [ptr]
+        lib.conv_q8_quantize.restype = i32
+        lib.conv_q8.argtypes = [ptr] * 6 + [i32, ptr] + [i32] * 8 + [ptr]
         lib.conv_q8.restype = i32
         lib.conv_error_string.argtypes = [i32]
         lib.conv_error_string.restype = ctypes.c_char_p
@@ -211,8 +226,13 @@ def _check_aligned(**tensors) -> None:
 
 
 def _too_large(x: torch.Tensor, cout: int) -> bool:
-    b, h, w, _ = x.shape
-    return b > 65535 or b * h * w * max(cout, x.shape[3]) >= 2**62
+    """Past the kernels' grid (images, and kernel 8's 32x8 tiles per image)
+    or 64-bit offsets."""
+    b, h, w, cin = x.shape
+    tiles = -(-h // 32) * -(-w // 8)
+    per_image = h * w * _padded_channels(cin)  # the quantise pass's 32-bit offsets
+    return (b > 65535 or tiles > 65535 or per_image >= 2**31
+            or b * h * w * max(cout, cin + _K_STEP) >= 2**62)
 
 
 def conv3x3_relu_maxpool(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -250,30 +270,93 @@ def conv3x3_relu_maxpool(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> t
     return out
 
 
-def _launch_q8(x, wq, sw, b, *, pool: bool, relu: bool, return_acc: bool):
+def _padded_channels(cin: int) -> int:
+    """Kernel 8's channel count: Cin rounded up to the 32-channel k-step."""
+    return -(-cin // _K_STEP) * _K_STEP
+
+
+def pack_q8_weights(wq: torch.Tensor) -> torch.Tensor:
+    """Kernel 8's weight layout: ``wq (Cout, 3, 3, Cin)`` int8 as ``(Cout / 64,
+    Cp / 16, 9, 64, 16)``, Cin zero-padded to ``Cp`` (a multiple of 32). For
+    each tile of 64 output channels (a kernel block's), block of 16 input
+    channels and tap ``3 * dy + dx``: the 64 rows of 16 bytes that one wgmma
+    B operand reads (K-major core matrices). A tile's 32-channel chunk is
+    contiguous, so one bulk copy stages it."""
+    cout, kh, kw, cin = wq.shape
+    cp = _padded_channels(cin)
+    w = wq.reshape(cout, kh * kw, cin)
+    if cp != cin:
+        w = F.pad(w, (0, cp - cin))
+    w = w.reshape(cout // _COUT_MULTIPLE, _COUT_MULTIPLE, kh * kw, cp // 16, 16)
+    return w.permute(0, 3, 2, 1, 4).contiguous()
+
+
+def _packed_weights(wq: torch.Tensor) -> torch.Tensor:
+    """``pack_q8_weights(wq)``, kept on ``wq`` until it changes in place: a
+    trunk's convs call kernel 8 with the same ``wq`` on every encode."""
+    hit = getattr(wq, "_pyvisim_packed", None)
+    if hit is None or hit[0] != wq._version:
+        hit = (wq._version, pack_q8_weights(wq))
+        wq._pyvisim_packed = hit
+    return hit[1]
+
+
+def _scale_launch(lib, x: torch.Tensor, dev: int, stream) -> torch.Tensor:
+    """:func:`activation_scale` of a CUDA ``x``: kernel 8's amax pass gives
+    the same maximum as the plain version's reduction, and the scale is
+    formed from it by the same operations."""
     bsz, h, wd, cin = x.shape
+    amax = torch.zeros((bsz,), dtype=torch.int32, device=x.device)
+    err = lib.conv_q8_amax(x.data_ptr(), int(x.dtype == torch.bfloat16), amax.data_ptr(),
+                           bsz, h, wd, cin, dev, stream)
+    _raise_on(lib, err, "conv3x3_q8 amax")
+    return _scale_from_amax(amax.view(torch.float32))
+
+
+def _quantize_launch(lib, x: torch.Tensor, sx: torch.Tensor, dev: int, stream) -> torch.Tensor:
+    """Kernel 8's quantise pass: ``x`` on ``sx`` into int8 ``(B, H, W, Cp)``,
+    zero past Cin."""
+    bsz, h, wd, cin = x.shape
+    cp = _padded_channels(cin)
+    xq = torch.empty((bsz, h, wd, cp), dtype=torch.int8, device=x.device)
+    err = lib.conv_q8_quantize(x.data_ptr(), int(x.dtype == torch.bfloat16), sx.data_ptr(),
+                               xq.data_ptr(), bsz, h, wd, cin, cp, dev, stream)
+    _raise_on(lib, err, "conv3x3_q8 quantise")
+    return xq
+
+
+def _conv_launch(lib, xq, wp, sw, sx, b, out, acc, *, pool: bool, relu: bool, dev: int,
+                 stream) -> None:
+    """Kernel 8's conv on the quantised ``xq`` and the packed ``wp``."""
+    bsz, h, wd, cp = xq.shape
+    err = lib.conv_q8(
+        xq.data_ptr(), wp.data_ptr(), sw.data_ptr(), sx.data_ptr(),
+        None if b is None else b.data_ptr(), out.data_ptr(), int(out.dtype == torch.bfloat16),
+        None if acc is None else acc.data_ptr(), int(pool), int(relu),
+        bsz, h, wd, cp, out.shape[-1], dev, stream,
+    )
+    _raise_on(lib, err, "conv3x3_q8")
+
+
+def _launch_q8(x, wq, sw, b, *, pool: bool, relu: bool, return_acc: bool):
+    bsz, h, wd, _ = x.shape
     cout = wq.shape[0]
     if _too_large(x, cout):
         raise ValueError(f"input too large for the kernel: {tuple(x.shape)}, Cout={cout}")
-    _check_aligned(x=x, wq=wq)
-    sx = activation_scale(x)
-    sw = sw.to(torch.float32)
-    b = None if b is None else b.to(torch.float32)
+    _check_aligned(x=x)
+    sw = sw.to(torch.float32).contiguous()
+    b = None if b is None else b.to(torch.float32).contiguous()
     shape = (bsz, h // 2, wd // 2, cout) if pool else (bsz, h, wd, cout)
     out = torch.empty(shape, dtype=x.dtype, device=x.device)
     acc = torch.zeros((bsz, h, wd, cout), dtype=torch.int32, device=x.device) if return_acc else None
     if out.numel() == 0 and (acc is None or acc.numel() == 0):
         return ((out, acc) if return_acc else out), False
-    xq = torch.empty(x.shape, dtype=torch.int8, device=x.device)  # the quantised x
     lib = _library()
     dev, stream = launch_target(x.device)
-    err = lib.conv_q8(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), xq.data_ptr(), wq.data_ptr(), sw.data_ptr(),
-        sx.data_ptr(), None if b is None else b.data_ptr(), out.data_ptr(),
-        None if acc is None else acc.data_ptr(), int(pool), int(relu),
-        bsz, h, wd, cin, cout, dev, stream,
-    )
-    _raise_on(lib, err, "conv3x3_q8")
+    sx = _scale_launch(lib, x, dev, stream)
+    xq = _quantize_launch(lib, x, sx, dev, stream)
+    _conv_launch(lib, xq, _packed_weights(wq), sw, sx, b, out, acc, pool=pool, relu=relu,
+                 dev=dev, stream=stream)
     return ((out, acc) if return_acc else out), True
 
 

@@ -258,3 +258,39 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         tconv.conv3x3_q8(x, w, sw, b)
     with pytest.raises(ValueError):
         tconv.conv3x3_q8(x, wq.contiguous(), sw[:32], b)
+
+
+# (B, H, W, Cin, Cout): Cin padded to the 32-channel k-step (3, 20, 160),
+# already a multiple of it (64), odd sides, and Cout of 64, 192 and 128.
+PACKED_SHAPES = [(1, 9, 13, 3, 64), (2, 7, 5, 20, 192), (1, 6, 10, 160, 64), (2, 5, 8, 64, 128)]
+
+
+@pytest.mark.parametrize("shape", PACKED_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_packed_q8_weights_give_the_plain_int32_sums(shape):
+    """Kernel 8 reads the weights packed as (Cout / 64, Cp / 16, 9, 64, 16)
+    and x quantised with its channels zero-padded to Cp: a plain conv over
+    those layouts, one channel tile, 16 channels and one tap at a time as
+    the wgmma tiles take them, gives the plain version's int32 sums bit for
+    bit."""
+    x, wk, bias = _inputs(shape, seed=5)
+    b, h, w, ci, co = shape
+    wq, sw = tconv.quantize_weight(_ohwi(wk))
+    wp = tconv.pack_q8_weights(wq)
+    cp = -(-ci // 32) * 32
+    n = 64
+    assert tuple(wp.shape) == (co // n, cp // 16, 9, n, 16) and wp.is_contiguous()
+    assert not wp.permute(1, 4, 2, 0, 3).reshape(cp, 9, co)[ci:].any()  # zero past Cin
+    tx = torch.from_numpy(x)
+    xq, _ = tconv.quantize_activation(tx)
+    # SAME padding of one pixel, channels padded to Cp.
+    xpad = F.pad(xq.to(torch.float64), (0, cp - ci, 1, 1, 1, 1))
+    acc = torch.zeros((b, h, w, co), dtype=torch.float64)
+    for tile in range(co // n):
+        for tap in range(9):
+            dy, dx = divmod(tap, 3)
+            for blk in range(cp // 16):
+                patch = xpad[:, dy : dy + h, dx : dx + w, 16 * blk : 16 * blk + 16]
+                acc[..., n * tile : n * tile + n] += patch @ wp[tile, blk, tap].to(torch.float64).T
+    _, want = tconv.conv3x3_q8_reference(tx, wq, sw, torch.from_numpy(bias), pool=False,
+                                         return_acc=True)
+    assert torch.equal(acc.round().to(torch.int32), want)

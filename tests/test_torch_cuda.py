@@ -384,6 +384,41 @@ def test_descriptor_kernel_matches_plain_version(cuda_device, atlases, dtype, n)
         assert set(kw["radius"].tolist()) == set(SIFT_CFG.desc_radius_classes)
 
 
+_DESC_MULT = 3.0 * 1.4142135623730951 * 2.5  # window radius per unit of scale
+
+
+def _check_descriptor_kernel(kw):
+    got = tsw.descriptor(**kw, n_layers=3)
+    again = tsw.descriptor(**kw, n_layers=3)
+    want = tsw.descriptor_reference(**kw, n_layers=3)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    diff = (got - want).abs()
+    assert diff.max().item() <= 1.0
+    assert (diff[kw["valid"]] == 0).float().mean().item() >= 0.99
+    assert not got[~kw["valid"]].any()
+    return got
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("cls", [24, 32, 40])
+def test_descriptor_kernel_at_each_radius_class(cuda_device, atlases, dtype, cls):
+    """Every keypoint at the largest scale of one radius class (the whole
+    window in play; past 40 the window stays at 40), windows clipped by the
+    image border, then one valid keypoint among many invalid ones."""
+    n = 96
+    kw, theta = _keypoints(*atlases[dtype], n, seed=cls)
+    scale = (cls + 0.4) / _DESC_MULT if cls < 40 else 60.0 / _DESC_MULT
+    kw["scl"] = torch.full((n,), scale, dtype=torch.float32)
+    kw["radius"] = tsift._radius_class(kw["scl"], _DESC_MULT, SIFT_CFG.desc_radius_classes)
+    assert set(kw["radius"].tolist()) == {cls}
+    kw = _on(cuda_device, dict(kw, theta=theta))
+    _check_descriptor_kernel(kw)
+    one = torch.zeros_like(kw["valid"])
+    one[n // 2] = True
+    _check_descriptor_kernel(dict(kw, valid=one))
+
+
 def test_window_kernels_all_invalid_and_refusals(cuda_device, atlases):
     kw, theta = _keypoints(*atlases["bfloat16"], 6)
     kw["radius"] = torch.full((6,), 12, dtype=torch.int32)
@@ -493,6 +528,39 @@ def test_q8_kernel_matches_plain_version_bit_for_bit(cuda_device, shape, dtype):
         assert torch.equal(acc, want_acc), (pool, relu)
         assert torch.equal(got, want), (pool, relu)
         assert torch.equal(got, again)
+
+
+# (B, H, W, Cin, Cout): sides that are no multiple of kernel 8's 32x8 tile
+# (9x13, 13x9, 1x5) and the trunk's 28x28, Cin padded to the 32-channel
+# k-step (3, 20, 160), Cout of 64, 192 (128 + 64 channel tiles) and 512.
+Q8_EDGE_SHAPES = [
+    (1, 9, 13, 3, 512), (1, 28, 28, 160, 192), (1, 1, 5, 20, 64), (1, 28, 28, 20, 512),
+    (1, 13, 9, 160, 64),
+]
+# (pool, relu, bias): pooled with and without bias, unpooled with ReLU and
+# no bias, unpooled with bias and no ReLU.
+Q8_MODES = [(True, True, True), (True, True, False), (False, True, False), (False, False, True)]
+
+
+@pytest.mark.parametrize("mode", Q8_MODES, ids=lambda m: "pool{}-relu{}-bias{}".format(*map(int, m)))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("shape", Q8_EDGE_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_q8_kernel_edges_bit_for_bit(cuda_device, shape, dtype, mode):
+    pool, relu, with_bias = mode
+    x, wt, bias = _conv_inputs(shape, dtype, cuda_device, seed=2)
+    wq, sw = tconv.quantize_weight(wt)
+    wq = wq.contiguous()
+    b = bias if with_bias else None
+    if pool:
+        got, acc = tconv.conv3x3_relu_maxpool_q8(x, wq, sw, b, return_acc=True)
+    else:
+        got, acc = tconv.conv3x3_q8(x, wq, sw, b, relu=relu, return_acc=True)
+    want, want_acc = tconv.conv3x3_q8_reference(x, wq, sw, b, pool=pool, relu=relu,
+                                                return_acc=True)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == dtype
+    assert torch.equal(acc, want_acc)
+    assert torch.equal(got, want)
 
 
 def test_conv_wrappers_refuse_what_they_do_not_take(cuda_device):

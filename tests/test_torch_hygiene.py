@@ -138,3 +138,19 @@ def test_sift_default_device_raises_without_cuda(no_cuda):
             make()
     assert RootSIFT(device="cpu").device.type == "cpu"
     assert VLADEncoder(device="cpu").feature_extractor.device.type == "cpu"
+
+
+def test_conv_probe_patches_lines_that_the_conv_source_has():
+    """conv_probe.py builds conv.cu with parts removed by replacing literal
+    lines; each must still be in the source (the probe raises otherwise,
+    and only on the card)."""
+    sys.path.insert(0, str(REPO))
+    try:
+        import conv_probe
+    finally:
+        sys.path.remove(str(REPO))
+    source = (PORT / "csrc" / "conv.cu").read_text()
+    assert set(conv_probe.VARIANTS) == {"as built", "no mma", "no staging", "no stores"}
+    for name, edits in conv_probe.VARIANTS.items():
+        for old, _ in edits:
+            assert old in source, f"{name}: {old!r}"
