@@ -26,9 +26,10 @@ Phases, each of which raises on a failed check:
       SiftConfig() gives them (process size 512, 2048 keypoints), at two
       loads: the main path's 384x512 structured images (a sixth of the
       keypoint budget valid) and 1/f-noise images that fill the budget:
-      refinement ok flags and positions equal and offsets to 1e-5, angles
-      to 1e-5 rad and second-peak flags equal, descriptors within 1 unit
-      and exact on >= 99 % of entries; each kernel's two calls bit-equal.
+      refinement (one launch over the 7 octaves) ok flags and positions
+      equal and offsets to 1e-5, angles to 1e-5 rad and second-peak flags
+      equal, descriptors within 1 unit and exact on >= 99 % of entries;
+      each kernel's two calls bit-equal.
    e. The fused conv kernels at the int8 trunk's shapes (VGG16, 224^2,
       bf16, B=128): kernel 7 at conv1 and conv3, kernel 8 pooled at conv6
       and conv9 and unpooled at conv4, 5, 7 and 8, each against its plain
@@ -38,6 +39,10 @@ Phases, each of which raises on a failed check:
       each kernel's two calls bit-equal. Timed beside the cuDNN sequence
       conv2d + relu_ + max_pool2d at the same shape; each kernel-8 call's
       time is also split into its per-image amax, quantise pass and conv.
+      Then a NaN in one image of a batch: kernel 7 (bf16 and f32) NaN
+      exactly where its plain version is and unchanged elsewhere, kernel 8
+      (pooled and unpooled) NaN on all of that image, as its plain version,
+      and bit for bit with it on the others, int32 sums included.
 3. Slice 1: ``VLADEncoder(DeepConvFeature("vgg16", 224, bf16))`` with
    K=256 on 128 images, then retrieval of 8 of them from a gallery of all
    128.
@@ -880,7 +885,9 @@ def phase_sift_kernels(kernels):
     main, full = records
     for rec, other in zip(main, full):
         rec["full_budget"] = {key: other[key] for key in (
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "shape")}
+            "max_abs_err", "ms", "device_ms", "device_ms_valid_only", "plain_ms", "bound_ms",
+            "bound_by", "shape")
+            if key in other}
     return main
 
 
@@ -890,9 +897,10 @@ def time_calls(fn, calls, **kw) -> float:
 
 
 def check_refine(kernels, calls, load: str) -> dict:
-    """Per octave: ok flags and positions equal, offsets and contrast to
-    1e-5 (the kernel repeats the plain version's f32 operations, so 0 is
-    expected), two kernel calls bit-equal."""
+    """One launch over every octave; ok flags and positions equal, offsets
+    and contrast to 1e-5 (the kernel repeats the plain version's f32
+    operations, so 0 is expected), two kernel calls bit-equal."""
+    check(len(calls) == 1, f"the SIFT call refined in {len(calls)} launches, not 1")
     n_cand = n_ok = fits_total = 0
     err = 0.0
     for args, kw in calls:
@@ -912,22 +920,38 @@ def check_refine(kernels, calls, load: str) -> dict:
     check(err <= 1e-5, f"refined offsets off by {err}")
     ms = time_calls(kernels.refine, calls)
     plain_ms = time_calls(kernels.refine_reference, calls, reps=3, rounds=5)
+    # The launch's own device time, apart from the host time of the call
+    # that the back-to-back timing above reads when it is the longer.
+    prof = profile_device_graph(lambda: time_calls(kernels.refine, calls, reps=1, rounds=1,
+                                                   warmup=0), reps=10, top=2)
+    device_ms = prof["kernel_ms_per_call"]
+    # Whether compacting the valid candidates first would pay: the launch's
+    # device time on them alone (the compaction itself not counted).
+    (dogs, img, layer, row, col, valid), kw = calls[0]
+    keep = valid.nonzero()[:, 0]
+    kept = dict(kw, counts=[int(part.sum()) for part in valid.split(kw["counts"])])
+    only_valid = [t[keep].contiguous() for t in (img, layer, row, col, valid)]
+    valid_only_ms = profile_device_graph(lambda: kernels.refine(dogs, *only_valid, **kept),
+                                         reps=10, top=2)["kernel_ms_per_call"]
     n_rows = sum(args[5].numel() for args, _ in calls)
     # Each fit reads the 19 DoG values of its stencils and does ~100 f32
     # operations; each row reads 17 bytes and writes 29.
     b = bound(100 * fits_total, 19 * 4 * fits_total + 46 * n_rows)
-    log(f"sift refine ({load}): {len(calls)} launches per call, {n_cand} valid of {n_rows} candidates, "
-        f"{n_ok} kept, {fits_total} fits; max|diff| {err:.3e}; kernel {ms:.4f} ms, "
+    log(f"sift refine ({load}): {len(calls)} launch(es) per call, {n_cand} valid of {n_rows} candidates, "
+        f"{n_ok} kept, {fits_total} fits; max|diff| {err:.3e}; kernel {ms:.4f} ms "
+        f"(device {device_ms:.4f}, on the valid candidates alone {valid_only_ms:.4f}), "
         f"plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b})")
     return {
         "name": "sift_refine", "route": "cuda",
         "source": "pyvisim_tpu_torch/csrc/sift_window.cu",
         "replaces": "pyvisim_tpu/ops/pallas/sift_window.py:855",
         "replaces_function": "_refine_gather_kernel (refine_gather_pass) + _refine_candidates",
-        "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": b["bound_ms"], "bound_by": b["bound_by"], "library_ms": None,
-        "launches_per_16_image_call": len(calls),
-        "shape": f"{n_rows} candidates over {len(calls)} octaves, {n_cand} valid, {n_ok} kept",
+        "launches": None, "max_abs_err": err, "ms": ms, "device_ms": device_ms,
+        "device_ms_valid_only": valid_only_ms,
+        "plain_ms": plain_ms, "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+        "library_ms": None, "launches_per_16_image_call": len(calls),
+        "shape": f"{n_rows} candidates over {len(calls[0][0][0])} octaves, {n_cand} valid, "
+                 f"{n_ok} kept",
     }
 
 
@@ -1098,7 +1122,6 @@ def phase_slice3(kernels, agg, gs):
                 agg.vlad_aggregate_batched, gs.gmm_stats_batched)
     names = ("sift_refine", "sift_orientation", "sift_descriptor", "vlad", "gmm_stats")
     n_calls = -(-SIFT_IMAGES // SIFT_BATCH)
-    n_octaves = sift_ops.SiftConfig().n_octaves
 
     def counts():
         return dict(zip(names, (w.launches for w in wrappers)))
@@ -1120,7 +1143,7 @@ def phase_slice3(kernels, agg, gs):
     per_pipe = since(before)
     log(f"slice 3: VLAD encode of {SIFT_IMAGES} images {vlad_s * 1e3:.1f} ms, launches "
         f"{per_vlad}; Pipeline encode {pipe_s * 1e3:.1f} ms, launches {per_pipe}")
-    sift_expected = {"sift_refine": n_calls * n_octaves, "sift_orientation": n_calls,
+    sift_expected = {"sift_refine": n_calls, "sift_orientation": n_calls,
                      "sift_descriptor": n_calls}
     check(per_vlad == dict(sift_expected, vlad=1, gmm_stats=0), f"VLAD encode ran {per_vlad}")
     check(per_pipe == dict(sift_expected, vlad=1, gmm_stats=1), f"Pipeline encode ran {per_pipe}")
@@ -1306,12 +1329,64 @@ def check_conv_call(conv, layer, hw, cin, cout, route, dtype=torch.bfloat16) -> 
     return rec
 
 
+def nan_probe(conv) -> dict:
+    """A NaN in image 0 of 4 post-ReLU activations, at conv1's shape for
+    kernel 7 (bf16 and f32) and conv4's for kernel 8 (pooled and not).
+    Kernel 7 must be NaN exactly where its plain version is (the pooled
+    outputs whose conv outputs read the NaN pixel) and elsewhere equal to
+    its output on the batch without the NaN; kernel 8 NaN on all of image
+    0, as its plain version (the scale is NaN), and bit for bit with it on
+    images 1-3, int32 sums included. Returns the NaN outputs of each."""
+    g = torch.Generator(device="cuda").manual_seed(7)
+    nan_outputs = {}
+    for name, hw, cin, cout in (("k7", 224, 64, 64), ("k8", 56, 128, 256)):
+        x32 = torch.randn(4, hw, hw, cin, device="cuda", generator=g).relu_()
+        w = torch.randn(cout, 3, 3, cin, device="cuda", generator=g) / (9 * cin) ** 0.5
+        bias = 0.1 * torch.randn(cout, device="cuda", generator=g)
+        wq, sw = conv.quantize_weight(w)
+        wq = wq.contiguous()
+        for dtype in (torch.bfloat16, torch.float32):
+            clean = x32.to(dtype)
+            x = clean.clone()
+            x[0, 101 % hw, 57 % hw, 5] = float("nan")
+            if name == "k7":
+                wx = w.to(dtype)
+                got = conv.conv3x3_relu_maxpool(x, wx, bias)
+                before = conv.conv3x3_relu_maxpool(clean, wx, bias)
+                want = conv.conv3x3_relu_maxpool_reference(x, wx, bias)
+                torch.cuda.synchronize()
+                nan = torch.isnan(want)
+                label = f"k7 {str(dtype)[6:]}"
+                check(bool(nan.any()), f"{label}: the plain version lost the NaN")
+                check(torch.equal(torch.isnan(got), nan), f"{label}: NaN where the plain version "
+                      f"has none or none where it has: {int(torch.isnan(got).sum())} vs {int(nan.sum())}")
+                check(torch.equal(got[~nan], before[~nan]), f"{label}: the NaN moved other outputs")
+                nan_outputs[label] = int(nan.sum())
+                continue
+            for pool in (True, False):
+                fn = conv.conv3x3_relu_maxpool_q8 if pool else conv.conv3x3_q8
+                got, acc = fn(x, wq, sw, bias, return_acc=True)
+                want, want_acc = conv.conv3x3_q8_reference(x, wq, sw, bias, pool=pool,
+                                                           return_acc=True)
+                torch.cuda.synchronize()
+                label = f"k8 {'pooled' if pool else 'unpooled'} {str(dtype)[6:]}"
+                check(bool(torch.isnan(want[0]).all()), f"{label}: the plain version is not NaN")
+                check(bool(torch.isnan(got[0]).all()), f"{label}: image 0 is not all NaN")
+                check(torch.equal(got[1:], want[1:]) and torch.equal(acc[1:], want_acc[1:]),
+                      f"{label}: the other images differ from the plain version")
+                nan_outputs[label] = int(torch.isnan(got).sum())
+    log(f"conv NaN probe: NaN outputs {nan_outputs}")
+    return nan_outputs
+
+
 def phase_conv_kernels(conv):
     """Phase 2e: kernels 7 and 8 at the int8 trunk's shapes (bf16, B=128),
-    and kernel 7 in float32 at conv3's. Returns the two kernels' records,
-    whose times and bounds sum their calls of one 128-image encode."""
+    and kernel 7 in float32 at conv3's; then the NaN probe. Returns the two
+    kernels' records, whose times and bounds sum their calls of one
+    128-image encode."""
     calls = [check_conv_call(conv, *spec) for spec in VGG16_FUSED]
     f32 = check_conv_call(conv, "conv3", 112, 128, 128, "k7", dtype=torch.float32)
+    nan_outputs = nan_probe(conv)
     records = []
     for name, line, routes in (("conv3x3_relu_maxpool", 157, ("k7",)),
                                ("conv3x3_relu_maxpool_q8", 301, ("k8", "k8p"))):
@@ -1334,6 +1409,8 @@ def phase_conv_kernels(conv):
             "per_call": mine,
         })
     records[0]["f32_conv3"] = f32
+    for rec, prefix in zip(records, ("k7", "k8")):
+        rec["nan_probe_outputs"] = {k: v for k, v in nan_outputs.items() if k.startswith(prefix)}
     return records
 
 

@@ -11,7 +11,10 @@
 //          acc = conv_same(xq, wq)                           int32, exact
 //          y   = relu(float(acc) * (sx[b] * sw[c]) + b[c])   then the 2x2 max if POOL
 // The pool floors odd H and W, as torch's MaxPool2d(2, 2) does. The result is
-// rounded once, to x's dtype.
+// rounded once, to x's dtype. ReLU and the 2x2 max carry NaN, as torch.relu,
+// F.max_pool2d and jnp.maximum do (max_nan below), and so does kernel 8's
+// amax: an image holding a NaN gets a NaN scale and NaN outputs, as its
+// plain version and the JAX package give.
 //
 // Bound. Per 128 images at 224^2 (VGG16): conv1 and conv3 are 473.5 GFLOP
 // each, 0.48 ms at 989 TFLOP/s bf16, against 1.03 and 0.51 GB of activations
@@ -24,59 +27,63 @@
 // without the TPU kernel's im2col scratch, whose shifted VMEM copies were what
 // made it lose to XLA's conv on the TPU (conv.py:26-36).
 //
-// Kernel 7 (bf16 and f32). A block of 256 threads owns a 16x16 tile of conv
-// outputs (8x8 pooled ones) and 64 output channels. It walks Cin in chunks
-// of 64 bytes per pixel (16 f32, 32 bf16 channels): it stages the chunk's
-// 18x18 halo tile in shared memory with cp.async, zero outside the image
-// (SAME padding) and past Cin, with the matching (64 x 9 x chunk) weights,
-// and accumulates in registers.
-//   bf16: warp-level mma.sync m16n8k16 (bf16 products are exact, sums f32).
-//         Each warp owns 64 pixels x 32 channels (4 x 4 mma tiles), its
-//         fragments loaded with ldmatrix; per-pixel and per-channel strides
-//         of the staged tiles are padded by 16 bytes, so the eight rows of an
-//         8x8 matrix fall in distinct banks.
-//   f32:  FMAs on the CUDA cores; TF32 would change results that the f32
-//         mode must keep.
-// In the epilogue the block writes its conv tile, with bias and ReLU
-// applied, to shared memory and takes the 2x2 max from there: the pre-pool
-// activation never reaches device memory.
+// Kernel 7 in bf16 and kernel 8 are one kernel, conv_wgmma_kernel, on
+// Hopper's warpgroup MMA:
+//   kernel 8: wgmma.mma_async m64n64k32 s8, int32 sums, exact in any order,
+//             so the kernel equals its plain version bit for bit; a 32x8 tile;
+//   kernel 7: wgmma.mma_async m64n64k16 bf16 (products exact, sums f32); a
+//             32x8 tile, or 16x16 where that pads the image less: at 224^2
+//             (conv1) neither pads and 32x8 was 6 % faster, at 112^2 (conv3)
+//             32-row tiles waste 12.5 % and 16x16 was 5 % faster
+//             (conv_probe.py, NVIDIA H100 80GB HBM3, 700 W).
+// A block of two warpgroups owns a tile of 256 conv outputs and 64 output
+// channels; each warpgroup computes two 64-pixel sub-tiles of 8 rows x 8
+// columns, and two blocks share an SM, so that one's epilogue overlaps the
+// other's wgmmas (a 128-channel tile on one block per SM was 10-20 % slower
+// for kernel 8). Both operands are K-major in shared memory, without swizzle:
+//   A, the halo of x, is staged channel-blocked, [block of 16 bytes of
+//     channels][halo rows][halo columns][16 bytes], by one TMA load per block
+//     (a 4-D tensor map over NHWC whose out-of-bounds zero fill is the SAME
+//     padding). For every tap (dy, dx) the 8 pixels of a conv row are then
+//     one contiguous 128-byte core matrix, the next conv row is one halo row
+//     further (the descriptor's stride offset) and the next 16 bytes of
+//     channels one block further (its leading offset): each of the 9 taps is
+//     one descriptor on the same staged tile.
+//   B, the weights, come packed as [block][tap][Cout][16 bytes]
+//     (ops/cuda/conv.py:pack_q8_weights, pack_bf16_weights), so that one bulk
+//     copy stages a chunk's (2 blocks x 9 taps x 64 x 16 bytes) in the layout
+//     wgmma reads.
+// Chunks of two blocks (32 int8 or 16 bf16 channels: one k-step per tap)
+// flow through a ring of 3 stages: thread 0 keeps the next two chunks' loads
+// in flight on each stage's mbarrier while the warpgroups run the current
+// chunk's 9 x 2 wgmmas; a stage is refilled once both warpgroups' wgmmas on
+// it have retired. The epilogue works in registers: kernel 8 dequantises,
+// __fmul_rn(__int2float_rn(acc), __fmul_rn(sx[b], sw[n])); both add the bias
+// with __fadd_rn (explicit round-to-nearest intrinsics, which nvcc cannot
+// contract into an FMA) and apply ReLU; the 2x2 max is taken in registers,
+// on the accumulators, before those (they are monotone and commute with
+// it): a thread holds two vertically adjacent pixels of each accumulator
+// fragment and its neighbour lane (lane ^ 4) the next column. The output
+// tile is then staged in shared memory and written in 16-byte pieces.
 //
-// Kernel 8 (int8). A first pass takes each image's max |x| (the scale sx =
-// max(amax / 127, 1e-8) is then formed as the plain version forms it), a
-// second quantises x once (rounded as IEEE division rounds, rint: half to
-// even) into an int8 scratch whose channels are padded with zeros to a
-// multiple of 32 (the k32 step). The conv runs on Hopper's warpgroup MMA,
-// wgmma.mma_async m64n64k32 s8 with int32 sums, exact in any order, so the
-// kernel equals its plain version bit for bit. A block of two warpgroups owns
-// a 32x8 tile of conv outputs and 64 output channels; each warpgroup computes
-// two 64-pixel sub-tiles of 8 rows x 8 columns (m64n64k32), and two blocks
-// share an SM, so that one's epilogue overlaps the other's wgmmas (a
-// 128-channel tile on one block per SM was 10-20 % slower). Both operands
-// are K-major in shared memory, without swizzle:
-//   A, the halo of the quantised x, is staged channel-blocked,
-//     [16-channel block][34 halo rows][10 halo columns][16 bytes], by one TMA
-//     load per block of 16 channels (a 4-D tensor map over NHWC whose
-//     out-of-bounds zero fill is the SAME padding). For every tap (dy, dx)
-//     the 8 pixels of a conv row are then one contiguous 128-byte core
-//     matrix, the next conv row is one halo row further (the descriptor's
-//     stride offset) and the next 16 channels one block further (its leading
-//     offset): each of the 9 taps is one descriptor on the same staged tile.
-//   B, the weights, come packed as [16-channel block][tap][Cout][16 bytes]
-//     (ops/cuda/conv.py:pack_q8_weights), so that one 3-D TMA load stages a
-//     chunk's (2 blocks x 9 taps x N x 16 bytes) in the layout wgmma reads.
-// Chunks of 32 channels flow through a ring of 3 stages: thread 0 keeps the
-// next two chunks' loads in flight on each stage's mbarrier while the
-// warpgroups run the current chunk's 9 x 2 wgmmas; a stage is refilled once
-// both warpgroups' wgmmas on it have retired. The epilogue dequantises in
-// registers, __fmul_rn(__int2float_rn(acc), __fmul_rn(sx[b], sw[n])), adds
-// the bias with __fadd_rn (explicit round-to-nearest intrinsics, which nvcc
-// cannot contract into an FMA), applies ReLU and takes the 2x2 max in
-// registers: a thread holds two vertically adjacent pixels of each
-// accumulator fragment and its neighbour lane (lane ^ 4) the next column.
-// (Quantising in each block while staging instead repeats the division for
-// every channel tile and every halo: 15x the bound at conv5.)
+// Kernel 8 reads x quantised: a first pass takes each image's max |x| (the
+// scale sx = max(amax / 127, 1e-8) is then formed as the plain version forms
+// it), a second quantises x once (rounded as IEEE division rounds, rint: half
+// to even) into an int8 scratch whose channels are padded with zeros to a
+// multiple of 32. (Quantising in each block while staging instead repeats the
+// division for every channel tile and every halo: 15x the bound at conv5.)
+// Kernel 7 in bf16 reads x as it is; the wrapper pads Cin to a multiple of 16
+// only where it is not one.
+//
+// Kernel 7 in f32 runs on the CUDA cores (TF32 would change results that the
+// f32 mode must keep): a block of 256 threads owns a 16x16 tile of conv
+// outputs (8x8 pooled ones) and 64 output channels, walks Cin in chunks of 16
+// channels staged with cp.async (the 18x18 halo, zero outside the image and
+// past Cin, and the matching 64 x 9 x 16 weights), accumulates with FMAs in
+// registers and takes the 2x2 max from an epilogue tile in shared memory.
 
 #include <algorithm>
+#include <type_traits>
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -86,12 +93,25 @@
 
 namespace {
 
+// max(a, b), and NaN when either is NaN (fmaxf returns the other operand):
+// one max.NaN instruction.
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+__device__ __forceinline__ int max_nan(int a, int b) { return max(a, b); }
+
+// ---------------------------------------------------------------------------
+// Kernel 7 in f32, on the CUDA cores.
+// ---------------------------------------------------------------------------
 constexpr int kTile = 16;                                  // conv outputs per tile side
 constexpr int kHalo = kTile + 2;                           // staged input rows and columns
 constexpr int kHaloPix = kHalo * kHalo;
 constexpr int kBlockN = 64;                                // output channels per block
 constexpr int kThreads = 256;
-constexpr int kChunkBytes = 64;                            // one pixel's staged channels (kernel 7)
+constexpr int kChunkBytes = 64;                            // one pixel's staged channels
 constexpr int kPixStrideBytes = kChunkBytes + 16;          // 20 words: rows in distinct banks
 constexpr int kWStrideBytes = 9 * kChunkBytes + 16;        // 148 words, likewise
 constexpr int kHaloBytes = kHaloPix * kPixStrideBytes;     // 25,920
@@ -100,17 +120,7 @@ constexpr int kEpStride = kBlockN + 8;                     // f32 words per pixe
 constexpr int kEpBytes = kTile * kTile * kEpStride * 4;    // 73,728
 constexpr int kSmemBytes =
     kEpBytes > kHaloBytes + kWeightBytes ? kEpBytes : kHaloBytes + kWeightBytes;
-
-// Four 8x8 matrices of 16-bit elements (rows of 16 bytes) from shared
-// memory: lane l gives the address of row l % 8 of matrix l / 8, and
-// receives in r[i] the 32-bit word l % 4 of row l / 4 of matrix i, which is
-// the mma.sync fragment layout for 16-bit and 8-bit operands alike.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
+constexpr int kChunk = kChunkBytes / 4;                    // f32 channels per chunk
 
 // 16 bytes from global to shared memory without passing through registers;
 // zeros when !valid (src is then not read).
@@ -125,56 +135,51 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// Stages channels [c0, c0 + chunk) of the 18x18 halo tile whose corner is
-// (oy0 - 1, ox0 - 1) in image b, as raw elements, zero outside the image and
-// past Cin. Pixel p's channels start at hs + p * kPixStrideBytes / sizeof(T).
-template <typename T>
-__device__ __forceinline__ void stage_halo(const T* __restrict__ x, T* hs, int b, int oy0,
+// Stages channels [c0, c0 + kChunk) of the 18x18 halo tile whose corner is
+// (oy0 - 1, ox0 - 1) in image b, zero outside the image and past Cin. Pixel
+// p's channels start at hs + p * kPixStrideBytes / 4.
+__device__ __forceinline__ void stage_halo(const float* __restrict__ x, float* hs, int b, int oy0,
                                            int ox0, int c0, int H, int W, int Cin) {
-  constexpr int kVec = 16 / sizeof(T);
   constexpr int kGroups = kChunkBytes / 16;
-  constexpr int kStride = kPixStrideBytes / sizeof(T);
-  const bool vec = Cin % kVec == 0;
+  constexpr int kStride = kPixStrideBytes / 4;
+  const bool vec = Cin % 4 == 0;
   for (int u = threadIdx.x; u < kHaloPix * kGroups; u += kThreads) {
     const int pix = u / kGroups, grp = u % kGroups;
     const int iy = oy0 - 1 + pix / kHalo, ix = ox0 - 1 + pix % kHalo;
-    const int ci = c0 + grp * kVec;
+    const int ci = c0 + grp * 4;
     const bool inside = iy >= 0 && iy < H && ix >= 0 && ix < W && ci < Cin;
-    const T* src = inside ? x + ((static_cast<size_t>(b) * H + iy) * W + ix) * Cin + ci : x;
-    T* dst = hs + pix * kStride + grp * kVec;
+    const float* src = inside ? x + ((static_cast<size_t>(b) * H + iy) * W + ix) * Cin + ci : x;
+    float* dst = hs + pix * kStride + grp * 4;
     if (vec) {
       cp_async16(dst, src, inside);
     } else {
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      T* e = reinterpret_cast<T*>(&v);
-      for (int j = 0; inside && j < kVec && ci + j < Cin; ++j) e[j] = src[j];
-      *reinterpret_cast<uint4*>(dst) = v;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      float* e = reinterpret_cast<float*>(&v);
+      for (int j = 0; inside && j < 4 && ci + j < Cin; ++j) e[j] = src[j];
+      *reinterpret_cast<float4*>(dst) = v;
     }
   }
 }
 
-// Stages channels [c0, c0 + chunk) of the 64 output channels from n0 on:
-// ws[n][tap * chunk + c] for tap = 3 * dy + dx, zero past Cin.
-template <typename T>
-__device__ __forceinline__ void stage_weights(const T* __restrict__ w, T* ws, int n0, int c0,
-                                              int Cin) {
-  constexpr int kVec = 16 / sizeof(T);
+// Stages channels [c0, c0 + kChunk) of the 64 output channels from n0 on:
+// ws[n][tap * kChunk + c] for tap = 3 * dy + dx, zero past Cin.
+__device__ __forceinline__ void stage_weights(const float* __restrict__ w, float* ws, int n0,
+                                              int c0, int Cin) {
   constexpr int kGroups = kChunkBytes / 16;
-  constexpr int kChunk = kChunkBytes / sizeof(T);
-  constexpr int kStride = kWStrideBytes / sizeof(T);
-  const bool vec = Cin % kVec == 0;
+  constexpr int kStride = kWStrideBytes / 4;
+  const bool vec = Cin % 4 == 0;
   for (int u = threadIdx.x; u < kBlockN * 9 * kGroups; u += kThreads) {
     const int row = u / kGroups, grp = u % kGroups;  // row = local n * 9 + tap
-    const int ci = c0 + grp * kVec;
-    const T* src = ci < Cin ? w + (static_cast<size_t>(n0) * 9 + row) * Cin + ci : w;
-    T* dst = ws + (row / 9) * kStride + (row % 9) * kChunk + grp * kVec;
+    const int ci = c0 + grp * 4;
+    const float* src = ci < Cin ? w + (static_cast<size_t>(n0) * 9 + row) * Cin + ci : w;
+    float* dst = ws + (row / 9) * kStride + (row % 9) * kChunk + grp * 4;
     if (vec) {
       cp_async16(dst, src, ci < Cin);
     } else {
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      T* e = reinterpret_cast<T*>(&v);
-      for (int j = 0; j < kVec && ci + j < Cin; ++j) e[j] = src[j];
-      *reinterpret_cast<uint4*>(dst) = v;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      float* e = reinterpret_cast<float*>(&v);
+      for (int j = 0; j < 4 && ci + j < Cin; ++j) e[j] = src[j];
+      *reinterpret_cast<float4*>(dst) = v;
     }
   }
 }
@@ -224,7 +229,9 @@ __device__ __forceinline__ int8_t quantize(float v, float s, float inv_s) {
 
 // amax[b] |= max |x[b]| over the image's per_image elements, as the bits of
 // a non-negative float, whose order is that of the ints: atomicMax gives the
-// same maximum in any order. amax must be zero first. Grid: x = blocks per
+// same maximum in any order. A NaN survives the block's maxima (max_nan),
+// and fabsf has cleared its sign, so its bits win the atomicMax over every
+// number, infinity included. amax must be zero first. Grid: x = blocks per
 // image, each striding over it eight elements a thread; y = image.
 template <typename Tin>
 __global__ void amax_kernel(const Tin* __restrict__ x, int* __restrict__ amax,
@@ -238,13 +245,13 @@ __global__ void amax_kernel(const Tin* __restrict__ x, int* __restrict__ amax,
     float v[8];
     load8(xb + e, static_cast<int>(min(8LL, per_image - e)), vec, v);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) m = fmaxf(m, fabsf(v[j]));
+    for (int j = 0; j < 8; ++j) m = max_nan(m, fabsf(v[j]));
   }
-  for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+  for (int off = 16; off > 0; off >>= 1) m = max_nan(m, __shfl_xor_sync(0xffffffffu, m, off));
   if (threadIdx.x % 32 == 0) s_max[threadIdx.x / 32] = m;
   __syncthreads();
   if (threadIdx.x == 0) {
-    for (int w = 1; w < kThreads / 32; ++w) m = fmaxf(m, s_max[w]);
+    for (int w = 1; w < kThreads / 32; ++w) m = max_nan(m, s_max[w]);
     atomicMax(amax + blockIdx.y, __float_as_int(m));
   }
 }
@@ -287,67 +294,17 @@ __global__ void quantize_kernel(const Tin* __restrict__ x, const float* __restri
   }
 }
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// The math of one staged chunk: 9 taps x 64 bytes of K for the warp's 64
-// pixels (tile rows 4wm..4wm+3) x 32 channels (32wn..32wn+31), as 4 x 4
-// mma tiles per 32-byte k-step. ldmatrix reads A as the matrices (pixels
-// 0-7 | 8-15) x (bytes 0-15 | 16-31) of a tile row, and B as (channels 0-7
-// | 8-15 of two n8 tiles) x (bytes 0-15 | 16-31): the fragments of m16n8k16.
-__device__ __forceinline__ void mma_chunk(float (&acc)[4][4][4], const unsigned char* hs,
-                                          const unsigned char* ws) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int lr = lane & 7, lm = lane >> 3;
-  const int wm = warp & 3, wn = warp >> 2;
-  const unsigned char* a0 =
-      hs + (wm * 4 * kHalo + lr + 8 * (lm & 1)) * kPixStrideBytes + 16 * (lm >> 1);
-  const unsigned char* b0 = ws + (wn * 32 + 8 * (lm >> 1) + lr) * kWStrideBytes + 16 * (lm & 1);
-#pragma unroll 1
-  for (int tap = 0; tap < 9; ++tap) {
-    const unsigned char* at = a0 + ((tap / 3) * kHalo + tap % 3) * kPixStrideBytes;
-    const unsigned char* bt = b0 + tap * kChunkBytes;
-#pragma unroll
-    for (int ks = 0; ks < kChunkBytes; ks += 32) {
-      uint32_t bf[4][2];
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        uint32_t r[4];
-        ldmatrix_x4(r, bt + q * 16 * kWStrideBytes + ks);
-        bf[2 * q][0] = r[0];
-        bf[2 * q][1] = r[1];
-        bf[2 * q + 1][0] = r[2];
-        bf[2 * q + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        uint32_t a[4];
-        ldmatrix_x4(a, at + i * kHalo * kPixStrideBytes + ks);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], a, bf[j]);
-      }
-    }
-  }
-}
-
 // Walks Cin in chunks: stages one (cp.async) and runs compute(halo,
-// weights) on it. x and w are staged alike, raw. Two blocks share an SM, so
-// one's copies overlap the other's math; a ring of two 64-byte stages inside
-// the block would take 128 KB of shared memory and leave one block per SM.
-template <typename T, typename Compute>
-__device__ __forceinline__ void run_chunks(const T* __restrict__ x, const T* __restrict__ w,
+// weights) on it. Two blocks share an SM, so one's copies overlap the
+// other's math; a ring of two stages inside the block would take 128 KB of
+// shared memory and leave one block per SM.
+template <typename Compute>
+__device__ __forceinline__ void run_chunks(const float* __restrict__ x, const float* __restrict__ w,
                                            unsigned char* smem, int b, int oy0, int ox0, int n0,
                                            int H, int W, int Cin, Compute compute) {
-  constexpr int kChunk = kChunkBytes / sizeof(T);
   for (int c0 = 0; c0 < Cin; c0 += kChunk) {
-    stage_halo(x, reinterpret_cast<T*>(smem), b, oy0, ox0, c0, H, W, Cin);
-    stage_weights(w, reinterpret_cast<T*>(smem + kHaloBytes), n0, c0, Cin);
+    stage_halo(x, reinterpret_cast<float*>(smem), b, oy0, ox0, c0, H, W, Cin);
+    stage_weights(w, reinterpret_cast<float*>(smem + kHaloBytes), n0, c0, Cin);
     cp_async_wait_all();
     __syncthreads();
     compute(smem, smem + kHaloBytes);
@@ -366,8 +323,7 @@ __device__ __forceinline__ void store2(__nv_bfloat16* dst, float a, float b) {
 // Writes the block's pooled outputs from the epilogue tile ep[pixel][channel]:
 // the 2x2 max of each pooled pixel inside (H/2, W/2). A warp writes one
 // pixel's 64 channels, two a thread.
-template <typename OutT>
-__device__ __forceinline__ void store_pooled(const float* ep, OutT* __restrict__ out, int b,
+__device__ __forceinline__ void store_pooled(const float* ep, float* __restrict__ out, int b,
                                              int oy0, int ox0, int n0, int H, int W, int Cout) {
   const int nl = 2 * (threadIdx.x % 32);
   constexpr int kRowsPerPass = kThreads / 32;
@@ -382,62 +338,21 @@ __device__ __forceinline__ void store_pooled(const float* ep, OutT* __restrict__
     const float2 v10 = *reinterpret_cast<const float2*>(e + kTile * kEpStride);
     const float2 v11 = *reinterpret_cast<const float2*>(e + (kTile + 1) * kEpStride);
     store2(out + ((static_cast<size_t>(b) * Hp + oy) * Wp + ox) * Cout + n0 + nl,
-           fmaxf(fmaxf(v00.x, v01.x), fmaxf(v10.x, v11.x)),
-           fmaxf(fmaxf(v00.y, v01.y), fmaxf(v10.y, v11.y)));
+           max_nan(max_nan(v00.x, v01.x), max_nan(v10.x, v11.x)),
+           max_nan(max_nan(v00.y, v01.y), max_nan(v10.y, v11.y)));
   }
-}
-
-// Grid: x = conv tiles (tiles_x per tile row), y = Cout / 64, z = image.
-__global__ void __launch_bounds__(kThreads)
-conv_pool_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-                      const float* __restrict__ bias, __nv_bfloat16* __restrict__ out, int H,
-                      int W, int Cin, int Cout, int tiles_x) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* ep = reinterpret_cast<float*>(smem);
-  const int b = blockIdx.z, n0 = blockIdx.y * kBlockN;
-  const int oy0 = (blockIdx.x / tiles_x) * kTile, ox0 = (blockIdx.x % tiles_x) * kTile;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp & 3, wn = warp >> 2;  // tile rows 4wm..4wm+3, channels 32wn..32wn+31
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  run_chunks(x, w, smem, b, oy0, ox0, n0, H, W, Cin,
-             [&](const unsigned char* hs, const unsigned char* ws) { mma_chunk(acc, hs, ws); });
-
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int nl = wn * 32 + j * 8 + 2 * t;
-    const float b0 = bias[n0 + nl], b1 = bias[n0 + nl + 1];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int p = (wm * 4 + i) * kTile + g + 8 * h;
-        *reinterpret_cast<float2*>(ep + p * kEpStride + nl) =
-            make_float2(fmaxf(acc[i][j][2 * h] + b0, 0.f), fmaxf(acc[i][j][2 * h + 1] + b1, 0.f));
-      }
-  }
-  __syncthreads();
-  store_pooled(ep, out, b, oy0, ox0, n0, H, W, Cout);
 }
 
 // Thread (tp, tn) owns conv row tp / 2, columns 8 (tp % 2) .. +7, and
 // channels tn, tn + 8, .., tn + 56 of the block's tile (so that the eight
-// tn of a warp read weights from eight distinct banks).
+// tn of a warp read weights from eight distinct banks). Grid: x = conv
+// tiles (tiles_x per tile row), y = Cout / 64, z = image.
 __global__ void __launch_bounds__(kThreads)
 conv_pool_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
                      const float* __restrict__ bias, float* __restrict__ out, int H, int W,
                      int Cin, int Cout, int tiles_x) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* ep = reinterpret_cast<float*>(smem);
-  constexpr int kChunk = kChunkBytes / 4;
   constexpr int kPS = kPixStrideBytes / 4;
   constexpr int kWS = kWStrideBytes / 4;
   const int b = blockIdx.z, n0 = blockIdx.y * kBlockN;
@@ -479,46 +394,97 @@ conv_pool_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
     for (int j = 0; j < 8; ++j)
       ep[(cy * kTile + cx0 + i) * kEpStride + tn + 8 * j] =
-          fmaxf(acc[i][j] + bias[n0 + tn + 8 * j], 0.f);
+          max_nan(acc[i][j] + bias[n0 + tn + 8 * j], 0.f);
   __syncthreads();
   store_pooled(ep, out, b, oy0, ox0, n0, H, W, Cout);
 }
 
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-}
-
-dim3 grid_for(int B, int H, int W, int Cout) {
-  return dim3(((H + kTile - 1) / kTile) * ((W + kTile - 1) / kTile), Cout / kBlockN, B);
-}
-
 // ---------------------------------------------------------------------------
-// Kernel 8 on wgmma (see the design at the top of the file).
+// Kernels 7 (bf16) and 8 (int8) on wgmma (see the design at the top of the file).
 // ---------------------------------------------------------------------------
-constexpr int kQ8Threads = 256;                     // two warpgroups
-constexpr int kQ8Rows = 32;                         // conv rows of a block tile
-constexpr int kQ8Cols = 8;                          // conv columns: one core-matrix row each
-constexpr int kQ8HaloRows = kQ8Rows + 2;
-constexpr int kQ8HaloCols = kQ8Cols + 2;
-constexpr int kQ8Chunk = 32;                        // channels per stage: one k32 step per tap
-constexpr int kQ8Blocks = kQ8Chunk / 16;            // 16-channel blocks per stage
-constexpr int kQ8Stages = 3;
-constexpr int kQ8N = 64;                            // output channels of a block tile
-constexpr int kQ8PlaneBytes = kQ8HaloRows * kQ8HaloCols * 16;      // 5,440: one block's halo
-constexpr int kQ8PlaneStride = (kQ8PlaneBytes + 127) / 128 * 128;  // TMA writes 128-B aligned
-constexpr int kQ8ABytes = kQ8Blocks * kQ8PlaneStride;
-constexpr int kQ8BBytes = kQ8Blocks * 9 * kQ8N * 16;  // [block][tap][n][16 bytes]
-constexpr int kQ8StageBytes = kQ8ABytes + kQ8BBytes;     // 29,440
-constexpr int kQ8TxBytes = kQ8Blocks * kQ8PlaneBytes + kQ8BBytes;
-static_assert(kQ8StageBytes % 128 == 0, "stages must stay 128-byte aligned");
-// The ring, its barriers, and room to align the dynamic shared memory:
-// 88,472 bytes, so that two blocks share an SM.
-constexpr int kQ8SmemBytes = kQ8Stages * kQ8StageBytes + kQ8Stages * 8 + 128;
+constexpr int kWgThreads = 256;                     // two warpgroups
+constexpr int kWgN = 64;                            // output channels of a block tile
+constexpr int kWgStages = 3;
+constexpr int kWgBlocks = 2;                        // 16-byte channel blocks per chunk
+constexpr int kWgBBytes = kWgBlocks * 9 * kWgN * 16;  // [block][tap][n][16 bytes]
+
+// A block tile of kRows x kCols conv outputs: four sub-tiles of 8x8, and
+// the ring of stages that feeds it.
+template <int Rows, int Cols>
+struct TileShape {
+  static constexpr int kRows = Rows, kCols = Cols;
+  static constexpr int kHaloRows = kRows + 2, kHaloCols = kCols + 2;
+  static constexpr int kPlaneBytes = kHaloRows * kHaloCols * 16;     // one block's halo
+  static constexpr int kPlaneStride = (kPlaneBytes + 127) / 128 * 128;  // TMA writes 128-B aligned
+  static constexpr int kABytes = kWgBlocks * kPlaneStride;
+  static constexpr int kStageBytes = kABytes + kWgBBytes;
+  static constexpr int kTxBytes = kWgBlocks * kPlaneBytes + kWgBBytes;
+  // The ring, its barriers, and room to align the dynamic shared memory:
+  // below half an SM's, so that two blocks share one.
+  static constexpr int kSmemBytes = kWgStages * kStageBytes + kWgStages * 8 + 128;
+  static_assert(kRows % 8 == 0 && kCols % 8 == 0 && kRows * kCols == 4 * 64,
+                "a tile is four 8x8 sub-tiles");
+  static_assert(kStageBytes % 128 == 0, "stages must stay 128-byte aligned");
+};
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
+
+// d (64 x 64 int32, the warpgroup's accumulator fragment) += A (64 x 32
+// int8) * B (64 x 32 int8)^T, both K-major in shared memory.
+__device__ __forceinline__ void wgmma_s8_64x64(int (&d)[32], uint64_t da, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+          "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+        : "l"(da), "l"(db), "r"(1));
+}
+
+// d (64 x 64 f32) += A (64 x 16 bf16) * B (64 x 16 bf16)^T, both K-major
+// (neither transposed) in shared memory, scales +1.
+__device__ __forceinline__ void wgmma_bf16_64x64(float (&d)[32], uint64_t da, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(1));
+}
+
+// Kernel 8: int8 x, int32 sums, 32x8 tiles.
+struct Q8 : TileShape<32, 8> {
+  using Acc = int;
+  static constexpr int kBlockElems = 16;  // channels in a 16-byte block
+  static constexpr CUtensorMapDataType kMapType = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  static __device__ __forceinline__ void mma(int (&d)[32], uint64_t da, uint64_t db) {
+    wgmma_s8_64x64(d, da, db);
+  }
+};
+
+// Kernel 7 in bf16: bf16 x, f32 sums, on tiles of Rows x Cols.
+template <int Rows, int Cols>
+struct Bf16 : TileShape<Rows, Cols> {
+  using Acc = float;
+  static constexpr int kBlockElems = 8;
+  static constexpr CUtensorMapDataType kMapType = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  static __device__ __forceinline__ void mma(float (&d)[32], uint64_t da, uint64_t db) {
+    wgmma_bf16_64x64(d, da, db);
+  }
+};
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
@@ -567,7 +533,7 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
 }
 
 // A shared-memory matrix descriptor without swizzle: the start address, the
-// leading byte offset (between the two 16-byte core matrices of a k32 step)
+// leading byte offset (between the two 16-byte core matrices of a k-step)
 // and the stride byte offset (between groups of 8 rows), all in 16 bytes.
 __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
@@ -587,7 +553,7 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-// Keeps the compiler from moving reads or writes of the accumulators across
+// Keep the compiler from moving reads or writes of the accumulators across
 // the wgmma fences and waits.
 template <int N>
 __device__ __forceinline__ void fence_regs(int (&d)[N]) {
@@ -595,108 +561,105 @@ __device__ __forceinline__ void fence_regs(int (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
-// d (64 x 64 int32, the warpgroup's accumulator fragment) += A (64 x 32
-// int8) * B (64 x 32 int8)^T, both K-major in shared memory.
-__device__ __forceinline__ void wgmma_s8_64x64(int (&d)[32], uint64_t da, uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "setp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-        "}, %32, %33, p;\n}\n"
-        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
-          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
-          "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
-        : "l"(da), "l"(db), "r"(1));
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-
-// Stages chunk c (channels 32c..32c+31) into its slot of the ring: the halo
-// of the tile whose corner is (oy0 - 1, ox0 - 1) in image b, one TMA load
-// per 16-channel block, and the chunk's weights for the block's
-// channel tile, contiguous in the packed layout, in one bulk copy; both
-// complete on the slot's barrier. Called by one thread.
-__device__ __forceinline__ void stage_chunk(const CUtensorMap* tm_x, const int8_t* w_tile,
+// Stages chunk c (channel blocks 2c and 2c + 1) into its slot of the ring:
+// the halo of the tile whose corner is (oy0 - 1, ox0 - 1) in image b, one
+// TMA load per block, and the chunk's weights for the block's channel tile,
+// contiguous in the packed layout, in one bulk copy; both complete on the
+// slot's barrier. Called by one thread.
+template <class K>
+__device__ __forceinline__ void stage_chunk(const CUtensorMap* tm_x, const unsigned char* w_tile,
                                             unsigned char* ring, uint64_t* full, int c, int b,
                                             int oy0, int ox0) {
-  const int s = c % kQ8Stages;
-  unsigned char* st = ring + s * kQ8StageBytes;
-  mbar_expect_tx(&full[s], kQ8TxBytes);
-  for (int j = 0; j < kQ8Blocks; ++j)
-    tma_load_4d(st + j * kQ8PlaneStride, tm_x, kQ8Chunk * c + 16 * j, ox0 - 1, oy0 - 1, b,
-                &full[s]);
-  bulk_load(st + kQ8ABytes, w_tile + static_cast<size_t>(c) * kQ8BBytes, kQ8BBytes, &full[s]);
+  const int s = c % kWgStages;
+  unsigned char* st = ring + s * K::kStageBytes;
+  mbar_expect_tx(&full[s], K::kTxBytes);
+  for (int j = 0; j < kWgBlocks; ++j)
+    tma_load_4d(st + j * K::kPlaneStride, tm_x, K::kBlockElems * (kWgBlocks * c + j), ox0 - 1,
+                oy0 - 1, b, &full[s]);
+  bulk_load(st + K::kABytes, w_tile + static_cast<size_t>(c) * kWgBBytes, kWgBBytes, &full[s]);
 }
 
-// The int8 conv on xq (B, H, W, Cp), quantize_kernel's output, read through
-// tm_x, with the weights wp packed by pack_q8_weights. acc_out, when not null,
-// receives the int32 accumulators of every conv pixel of the tile inside
-// (H, W), as (B, H, W, Cout). Grid: x = Cout / kQ8N, y = conv tiles (tiles_x
-// per tile row), z = image.
-template <typename OutT>
-__global__ void __launch_bounds__(kQ8Threads, 2)
-conv_q8_kernel(const __grid_constant__ CUtensorMap tm_x, const int8_t* __restrict__ wp,
-               const float* __restrict__ sw, const float* __restrict__ sx,
-               const float* __restrict__ bias, OutT* __restrict__ out, int* __restrict__ acc_out,
-               int pool, int relu, int H, int W, int Cout, int n_chunks, int tiles_x) {
+// The conv of x (B, H, W, Cp), read through tm_x, with the weights wp
+// packed by pack_q8_weights or pack_bf16_weights; then, for kernel 8, the
+// dequantisation by sx (B,) and sw (Cout,); the bias (Cout,) f32, if not
+// null; ReLU if relu; the 2x2 max if pool. acc_out (kernel 8), when not
+// null, receives the int32 accumulators of every conv pixel of the tile
+// inside (H, W), as (B, H, W, Cout). Grid: x = Cout / kWgN, y = conv tiles
+// (tiles_x per tile row), z = image.
+template <class K, typename OutT>
+__global__ void __launch_bounds__(kWgThreads, 2)
+conv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x, const unsigned char* __restrict__ wp,
+                  const float* __restrict__ sw, const float* __restrict__ sx,
+                  const float* __restrict__ bias, OutT* __restrict__ out, int* __restrict__ acc_out,
+                  int pool, int relu, int H, int W, int Cout, int n_chunks, int tiles_x) {
+  using Acc = typename K::Acc;
+  constexpr bool kQuantised = std::is_same<Acc, int>::value;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~static_cast<uintptr_t>(127));
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kQ8Stages * kQ8StageBytes);
-  const int n0 = blockIdx.x * kQ8N, b = blockIdx.z;
-  const int oy0 = (blockIdx.y / tiles_x) * kQ8Rows, ox0 = (blockIdx.y % tiles_x) * kQ8Cols;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kWgStages * K::kStageBytes);
+  const int n0 = blockIdx.x * kWgN, b = blockIdx.z;
+  const int oy0 = (blockIdx.y / tiles_x) * K::kRows, ox0 = (blockIdx.y % tiles_x) * K::kCols;
   const int tid = threadIdx.x, wg = tid / 128;
-  // The packed weights of this channel tile: n_chunks chunks of kQ8BBytes.
-  const int8_t* w_tile = wp + static_cast<size_t>(blockIdx.x) * n_chunks * kQ8BBytes;
+  // The packed weights of this channel tile: n_chunks chunks of kWgBBytes.
+  const unsigned char* w_tile = wp + static_cast<size_t>(blockIdx.x) * n_chunks * kWgBBytes;
   if (tid == 0) {
-    for (int s = 0; s < kQ8Stages; ++s) mbar_init(&full[s], 1);
+    for (int s = 0; s < kWgStages; ++s) mbar_init(&full[s], 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
   if (tid == 0)
-    for (int c = 0; c < min(kQ8Stages, n_chunks); ++c)
-      stage_chunk(&tm_x, w_tile, smem, full, c, b, oy0, ox0);
+    for (int c = 0; c < min(kWgStages, n_chunks); ++c)
+      stage_chunk<K>(&tm_x, w_tile, smem, full, c, b, oy0, ox0);
   __syncwarp();
 
-  int acc[2][kQ8N / 2];  // the warpgroup's two 64-pixel sub-tiles
+  // Sub-tile t = 2 wg + sub of the tile covers conv rows y0(t)..+7 and
+  // columns x0(t)..+7.
+  constexpr int kSubCols = K::kCols / 8;
+  Acc acc[2][kWgN / 2];  // the warpgroup's two 64-pixel sub-tiles
 #pragma unroll
   for (int sub = 0; sub < 2; ++sub)
 #pragma unroll
-    for (int i = 0; i < kQ8N / 2; ++i) acc[sub][i] = 0;
+    for (int i = 0; i < kWgN / 2; ++i) acc[sub][i] = 0;
 
   const uint32_t ring = smem_addr(smem);
   for (int c = 0; c < n_chunks; ++c) {
-    const int s = c % kQ8Stages;
-    mbar_wait(&full[s], (c / kQ8Stages) & 1);
-    const uint32_t a_st = ring + s * kQ8StageBytes;
-    const uint32_t b_st = a_st + kQ8ABytes;
+    const int s = c % kWgStages;
+    mbar_wait(&full[s], (c / kWgStages) & 1);
+    const uint32_t a_st = ring + s * K::kStageBytes;
+    const uint32_t b_st = a_st + K::kABytes;
     fence_regs(acc[0]);
     fence_regs(acc[1]);
     wgmma_fence();
 #pragma unroll
     for (int tap = 0; tap < 9; ++tap) {
-      const uint64_t db = smem_desc(b_st + tap * kQ8N * 16, 9 * kQ8N * 16, 128);
+      const uint64_t db = smem_desc(b_st + tap * kWgN * 16, 9 * kWgN * 16, 128);
 #pragma unroll
       for (int sub = 0; sub < 2; ++sub) {
         // Conv row r of the tile reads halo row r + dy at tap (dy, dx).
-        const int hrow = (2 * wg + sub) * 8 + tap / 3;
-        const uint64_t da = smem_desc(a_st + (hrow * kQ8HaloCols + tap % 3) * 16, kQ8PlaneStride,
-                                      kQ8HaloCols * 16);
-        wgmma_s8_64x64(acc[sub], da, db);
+        const int t = 2 * wg + sub;
+        const int hrow = (t / kSubCols) * 8 + tap / 3, hcol = (t % kSubCols) * 8 + tap % 3;
+        const uint64_t da = smem_desc(a_st + (hrow * K::kHaloCols + hcol) * 16, K::kPlaneStride,
+                                      K::kHaloCols * 16);
+        K::mma(acc[sub], da, db);
       }
     }
     wgmma_commit();
     fence_regs(acc[0]);
     fence_regs(acc[1]);
     // Chunk c - 1's wgmmas have retired in this warpgroup; after the
-    // barrier, in both: its stage takes chunk c - 1 + kQ8Stages.
+    // barrier, in both: its stage takes chunk c - 1 + kWgStages.
     wgmma_wait<1>();
     __syncthreads();
-    if (tid == 0 && c >= 1 && c - 1 + kQ8Stages < n_chunks)
-      stage_chunk(&tm_x, w_tile, smem, full, c - 1 + kQ8Stages, b, oy0, ox0);
+    if (tid == 0 && c >= 1 && c - 1 + kWgStages < n_chunks)
+      stage_chunk<K>(&tm_x, w_tile, smem, full, c - 1 + kWgStages, b, oy0, ox0);
     __syncwarp();
   }
   wgmma_wait<0>();
@@ -707,61 +670,72 @@ conv_q8_kernel(const __grid_constant__ CUtensorMap tm_x, const int8_t* __restric
 
   // Fragment layout: warp wi of the warpgroup holds rows 16 wi + g and
   // 16 wi + g + 8 of each sub-tile (conv rows 2 wi and 2 wi + 1, column g),
-  // element 4j + 2h + e at channel 8j + 2q + e. Each thread dequantises
-  // its elements, pools them if asked (the column pair sits in lanes g and
-  // g ^ 1), and writes them to the output tile in shared memory, [pixel]
+  // element 4j + 2h + e at channel 8j + 2q + e. Pooled, a thread first
+  // takes the 2x2 max of its accumulators (the column pair sits in lanes g
+  // and g ^ 1), then dequantises (kernel 8), adds the bias and applies ReLU
+  // to the one value left: each of these is monotone (the scales are
+  // positive), so they commute with the max, exactly, and a NaN still
+  // wins; it is four times less work than finishing every conv output,
+  // which made the epilogue nearly as long as the main loop at conv1 (1.15
+  // ms a call there, 0.94 after, chip_smoke.py on the H100). Each thread
+  // writes its values to the output tile in shared memory, [pixel]
   // [channel] in OutT with rows padded by 16 bytes (no bank conflicts);
   // then the block copies the tile out in 16-byte pieces, each pixel's
   // channels contiguous.
-  constexpr int kEp = kQ8N + 16 / static_cast<int>(sizeof(OutT));  // elements per tile pixel
-  static_assert(kQ8Rows * kQ8Cols * kEp * static_cast<int>(sizeof(OutT)) <=
-                    kQ8Stages * kQ8StageBytes, "the output tile must fit in the ring");
+  constexpr int kEp = kWgN + 16 / static_cast<int>(sizeof(OutT));  // elements per tile pixel
+  static_assert(K::kRows * K::kCols * kEp * static_cast<int>(sizeof(OutT)) <=
+                    kWgStages * K::kStageBytes, "the output tile must fit in the ring");
   OutT* ep = reinterpret_cast<OutT*>(smem);
-  const float s = sx[b];
   const int lane = tid & 31, wi = (tid >> 5) & 3, g = lane >> 2, q = lane & 3;
+  auto finish = [&](Acc a, int nl) {
+    float y;
+    if constexpr (kQuantised)
+      y = __fmul_rn(__int2float_rn(a), __fmul_rn(sx[b], sw[n0 + nl]));
+    else
+      y = a;
+    if (bias != nullptr) y = __fadd_rn(y, bias[n0 + nl]);
+    return relu ? max_nan(y, 0.f) : y;
+  };
 #pragma unroll
   for (int sub = 0; sub < 2; ++sub) {
-    const int ty = (2 * wg + sub) * 8 + 2 * wi;  // this thread's tile rows ty, ty + 1
+    const int t = 2 * wg + sub;
+    const int ty = (t / kSubCols) * 8 + 2 * wi;  // this thread's tile rows ty, ty + 1
+    const int tx = (t % kSubCols) * 8 + g;       // and tile column
 #pragma unroll
-    for (int j = 0; j < kQ8N / 8; ++j) {
-      const int nl = 8 * j + 2 * q, n = n0 + nl;
-      const float sc[2] = {__fmul_rn(s, sw[n]), __fmul_rn(s, sw[n + 1])};
-      float bn[2] = {0.f, 0.f};
-      if (bias != nullptr) bn[0] = bias[n], bn[1] = bias[n + 1];
-      float v[4];
+    for (int j = 0; j < kWgN / 8; ++j) {
+      const int nl = 8 * j + 2 * q;
+      Acc* a = acc[sub];  // a[4 j + 2 h + e]: conv row ty + h, channel nl + e
+      if constexpr (kQuantised) {
+        if (acc_out != nullptr) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float t = __fmul_rn(__int2float_rn(acc[sub][4 * j + e]), sc[e & 1]);
-        if (bias != nullptr) t = __fadd_rn(t, bn[e & 1]);
-        if (relu) t = fmaxf(t, 0.f);
-        v[e] = t;
-      }
-      if (acc_out != nullptr) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-          if (oy0 + ty + h < H && ox0 + g < W)
-            *reinterpret_cast<int2*>(
-                acc_out + ((static_cast<size_t>(b) * H + oy0 + ty + h) * W + ox0 + g) * Cout + n) =
-                make_int2(acc[sub][4 * j + 2 * h], acc[sub][4 * j + 2 * h + 1]);
+          for (int h = 0; h < 2; ++h)
+            if (oy0 + ty + h < H && ox0 + tx < W)
+              *reinterpret_cast<int2*>(
+                  acc_out + ((static_cast<size_t>(b) * H + oy0 + ty + h) * W + ox0 + tx) * Cout + n0 + nl) =
+                  make_int2(a[4 * j + 2 * h], a[4 * j + 2 * h + 1]);
+        }
       }
       if (pool) {
-        float m0 = fmaxf(v[0], v[2]), m1 = fmaxf(v[1], v[3]);  // rows ty, ty + 1
-        m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 4));   // columns g, g ^ 1
-        m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 4));
-        if ((g & 1) == 0) store2(ep + ((ty / 2) * (kQ8Cols / 2) + g / 2) * kEp + nl, m0, m1);
+        Acc m0 = max_nan(a[4 * j], a[4 * j + 2]), m1 = max_nan(a[4 * j + 1], a[4 * j + 3]);
+        m0 = max_nan(m0, __shfl_xor_sync(0xffffffffu, m0, 4));  // columns tx, tx ^ 1
+        m1 = max_nan(m1, __shfl_xor_sync(0xffffffffu, m1, 4));
+        if ((g & 1) == 0)
+          store2(ep + ((ty / 2) * (K::kCols / 2) + tx / 2) * kEp + nl, finish(m0, nl), finish(m1, nl + 1));
       } else {
 #pragma unroll
-        for (int h = 0; h < 2; ++h) store2(ep + ((ty + h) * kQ8Cols + g) * kEp + nl, v[2 * h], v[2 * h + 1]);
+        for (int h = 0; h < 2; ++h)
+          store2(ep + ((ty + h) * K::kCols + tx) * kEp + nl, finish(a[4 * j + 2 * h], nl),
+                 finish(a[4 * j + 2 * h + 1], nl + 1));
       }
     }
   }
   __syncthreads();
   constexpr int kVec = 16 / static_cast<int>(sizeof(OutT));  // elements per 16-byte piece
-  constexpr int kPieces = kQ8N / kVec;                           // pieces per pixel
-  const int rows = pool ? kQ8Rows / 2 : kQ8Rows, cols = pool ? kQ8Cols / 2 : kQ8Cols;
+  constexpr int kPieces = kWgN / kVec;                           // pieces per pixel
+  const int rows = pool ? K::kRows / 2 : K::kRows, cols = pool ? K::kCols / 2 : K::kCols;
   const int Ho = pool ? H / 2 : H, Wo = pool ? W / 2 : W;
   const int py0 = pool ? oy0 / 2 : oy0, px0 = pool ? ox0 / 2 : ox0;
-  for (int u = tid; u < rows * cols * kPieces; u += kQ8Threads) {
+  for (int u = tid; u < rows * cols * kPieces; u += kWgThreads) {
     const int pix = u / kPieces, piece = u % kPieces;
     const int oy = py0 + pix / cols, ox = px0 + pix % cols;
     if (oy >= Ho || ox >= Wo) continue;
@@ -795,42 +769,42 @@ EncodeTiled tensor_map_encoder() {
   return fn;
 }
 
-// A tiled int8 tensor map of `rank` dimensions (innermost first), zero
-// outside the tensor.
-cudaError_t encode_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-                       const cuuint64_t* strides, const cuuint32_t* box) {
+// A tiled tensor map of `rank` dimensions (innermost first), zero outside
+// the tensor.
+cudaError_t encode_map(CUtensorMap* map, CUtensorMapDataType type, const void* base, int rank,
+                       const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box) {
   const EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
-  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, rank, const_cast<void*>(base),
-                              dims, strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                              CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+  const CUresult res = encode(map, type, rank, const_cast<void*>(base), dims, strides, box, ones,
+                              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <typename OutT>
-cudaError_t launch_q8(const int8_t* xq, const int8_t* wp, const float* sw, const float* sx,
-                      const float* bias, void* out, int* acc, int pool, int relu, int B, int H,
-                      int W, int Cp, int Cout, cudaStream_t stream) {
-  // xq as (Cp, W, H, B): a box of (16, 10, 34, 1) lands in shared memory
-  // as one 16-channel block's [halo row][halo column][16 bytes].
+template <class K, typename OutT>
+cudaError_t launch_wgmma(const void* x, const void* wp, const float* sw, const float* sx,
+                         const float* bias, void* out, int* acc, int pool, int relu, int B, int H,
+                         int W, int Cp, int Cout, cudaStream_t stream) {
+  // x as (Cp, W, H, B): a box of (one block, halo columns, halo rows, 1)
+  // lands in shared memory as one block's [halo row][halo column][16 bytes].
   CUtensorMap tm_x;
+  const cuuint64_t elem = 16 / K::kBlockElems;
   const cuuint64_t x_dims[4] = {static_cast<cuuint64_t>(Cp), static_cast<cuuint64_t>(W),
                                 static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
-  const cuuint64_t x_strides[3] = {static_cast<cuuint64_t>(Cp), static_cast<cuuint64_t>(W) * Cp,
-                                   static_cast<cuuint64_t>(H) * W * Cp};
-  const cuuint32_t x_box[4] = {16, kQ8HaloCols, kQ8HaloRows, 1};
-  cudaError_t err = encode_map(&tm_x, xq, 4, x_dims, x_strides, x_box);
+  const cuuint64_t x_strides[3] = {elem * Cp, elem * W * Cp, elem * H * W * Cp};
+  const cuuint32_t x_box[4] = {K::kBlockElems, K::kHaloCols, K::kHaloRows, 1};
+  cudaError_t err = encode_map(&tm_x, K::kMapType, x, 4, x_dims, x_strides, x_box);
   if (err != cudaSuccess) return err;
-  auto kernel = conv_q8_kernel<OutT>;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kQ8SmemBytes);
+  auto kernel = conv_wgmma_kernel<K, OutT>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, K::kSmemBytes);
   if (err != cudaSuccess) return err;
-  const int tiles_x = (W + kQ8Cols - 1) / kQ8Cols, tiles_y = (H + kQ8Rows - 1) / kQ8Rows;
-  const dim3 grid(Cout / kQ8N, tiles_x * tiles_y, B);
-  kernel<<<grid, kQ8Threads, kQ8SmemBytes, stream>>>(
-      tm_x, wp, sw, sx, bias, static_cast<OutT*>(out), acc, pool, relu, H, W, Cout,
-      Cp / kQ8Chunk, tiles_x);
+  const int tiles_x = (W + K::kCols - 1) / K::kCols, tiles_y = (H + K::kRows - 1) / K::kRows;
+  const dim3 grid(Cout / kWgN, tiles_x * tiles_y, B);
+  kernel<<<grid, kWgThreads, K::kSmemBytes, stream>>>(
+      tm_x, static_cast<const unsigned char*>(wp), sw, sx, bias, static_cast<OutT*>(out), acc,
+      pool, relu, H, W, Cout, Cp / (kWgBlocks * K::kBlockElems), tiles_x);
   return cudaGetLastError();
 }
 
@@ -842,35 +816,48 @@ const char* conv_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Kernel 7 in bfloat16: x (B, H, W, Cin) and w (Cout, 3, 3, Cin) bf16, bias
-// (Cout,) f32, out (B, H/2, W/2, Cout) bf16; Cout a multiple of 64. Returns
+// Kernel 7 in bfloat16: x (B, H, W, Cp) bf16, Cp a multiple of 16; wp the
+// packed weights (Cout / 64, Cp / 8, 9, 64, 8) bf16
+// (ops/cuda/conv.py:pack_bf16_weights); bias (Cout,) f32; out (B, H/2, W/2,
+// Cout) bf16; Cout a multiple of 64; x, wp and out 16-byte aligned. Returns
 // the CUDA error status (0 on success).
-int conv_pool_bf16(const void* x, const void* w, const float* bias, void* out, int B, int H,
-                   int W, int Cin, int Cout, int device, void* stream_ptr) {
+int conv_pool_bf16(const void* x, const void* wp, const float* bias, void* out, int B, int H,
+                   int W, int Cp, int Cout, int device, void* stream_ptr) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if ((err = allow_smem(conv_pool_bf16_kernel)) != cudaSuccess) return err;
-  conv_pool_bf16_kernel<<<grid_for(B, H, W, Cout), kThreads, kSmemBytes,
-                          static_cast<cudaStream_t>(stream_ptr)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w), bias,
-      static_cast<__nv_bfloat16*>(out), H, W, Cin, Cout, (W + kTile - 1) / kTile);
-  return cudaGetLastError();
+  if (Cp % (kWgBlocks * Bf16<32, 8>::kBlockElems) != 0 || Cp == 0 || Cout % kWgN != 0 ||
+      Cout == 0)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
+  const auto padded = [&](int rows, int cols) {
+    return static_cast<long long>((H + rows - 1) / rows * rows) * ((W + cols - 1) / cols * cols);
+  };
+  if (padded(32, 8) <= padded(16, 16))
+    return launch_wgmma<Bf16<32, 8>, __nv_bfloat16>(x, wp, nullptr, nullptr, bias, out, nullptr,
+                                                   1, 1, B, H, W, Cp, Cout, s);
+  return launch_wgmma<Bf16<16, 16>, __nv_bfloat16>(x, wp, nullptr, nullptr, bias, out, nullptr, 1,
+                                                  1, B, H, W, Cp, Cout, s);
 }
 
-// Kernel 7 in float32, as conv_pool_bf16.
+// Kernel 7 in float32: x (B, H, W, Cin) and w (Cout, 3, 3, Cin) f32, bias
+// (Cout,) f32, out (B, H/2, W/2, Cout) f32; Cout a multiple of 64.
 int conv_pool_f32(const float* x, const float* w, const float* bias, float* out, int B, int H,
                   int W, int Cin, int Cout, int device, void* stream_ptr) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if ((err = allow_smem(conv_pool_f32_kernel)) != cudaSuccess) return err;
-  conv_pool_f32_kernel<<<grid_for(B, H, W, Cout), kThreads, kSmemBytes,
-                         static_cast<cudaStream_t>(stream_ptr)>>>(
-      x, w, bias, out, H, W, Cin, Cout, (W + kTile - 1) / kTile);
+  err = cudaFuncSetAttribute(conv_pool_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmemBytes);
+  if (err != cudaSuccess) return err;
+  const int tiles_x = (W + kTile - 1) / kTile;
+  const dim3 grid(tiles_x * ((H + kTile - 1) / kTile), Cout / kBlockN, B);
+  conv_pool_f32_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream_ptr)>>>(
+      x, w, bias, out, H, W, Cin, Cout, tiles_x);
   return cudaGetLastError();
 }
 
 // Kernel 8's amax pass: amax (B,) int32, zero on entry, receives the bits
-// of max |x[b]| (a float) for x (B, H, W, Cin) f32 (bf16_input 0) or bf16 (1).
+// of max |x[b]| (a float; NaN if x[b] holds one) for x (B, H, W, Cin) f32
+// (bf16_input 0) or bf16 (1).
 int conv_q8_amax(const void* x, int bf16_input, int* amax, int B, int H, int W, int Cin,
                  int device, void* stream_ptr) {
   cudaError_t err = cudaSetDevice(device);
@@ -900,7 +887,7 @@ int conv_q8_quantize(const void* x, int bf16_input, const float* sx, int8_t* xq,
                      int W, int Cin, int Cp, int device, void* stream_ptr) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (Cp % kQ8Chunk != 0 || Cp < Cin) return cudaErrorInvalidValue;
+  if (Cp % (kWgBlocks * Q8::kBlockElems) != 0 || Cp < Cin) return cudaErrorInvalidValue;
   const long long per_image = static_cast<long long>(H) * W * Cp;
   if (per_image >= (1LL << 31) || B > 65535) return cudaErrorInvalidValue;
   if (per_image == 0 || B == 0) return cudaSuccess;
@@ -927,12 +914,13 @@ int conv_q8(const int8_t* xq, const int8_t* wp, const float* sw, const float* sx
             int H, int W, int Cp, int Cout, int device, void* stream_ptr) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (Cp % kQ8Chunk != 0 || Cp == 0 || Cout % 64 != 0 || Cout == 0) return cudaErrorInvalidValue;
+  if (Cp % (kWgBlocks * Q8::kBlockElems) != 0 || Cp == 0 || Cout % kWgN != 0 || Cout == 0)
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
   if (bf16_out)
-    return launch_q8<__nv_bfloat16>(xq, wp, sw, sx, bias, out, acc, pool, relu, B, H, W, Cp, Cout,
-                                    s);
-  return launch_q8<float>(xq, wp, sw, sx, bias, out, acc, pool, relu, B, H, W, Cp, Cout, s);
+    return launch_wgmma<Q8, __nv_bfloat16>(xq, wp, sw, sx, bias, out, acc, pool, relu, B, H, W,
+                                           Cp, Cout, s);
+  return launch_wgmma<Q8, float>(xq, wp, sw, sx, bias, out, acc, pool, relu, B, H, W, Cp, Cout, s);
 }
 
 }  // extern "C"

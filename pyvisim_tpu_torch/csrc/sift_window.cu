@@ -24,6 +24,12 @@
 // keeps each window's reads in one block (L1 serves the reuse) and
 // stages per-pixel terms in shared memory; nothing between the stages
 // reaches device memory.
+//
+// The refinement's bound is microseconds per SIFT call, far below what the
+// host takes to issue a launch, so it refines the candidates of every
+// octave in one launch: the octaves' DoG tensors come as a table in the
+// kernel's parameters (pointer, size and first candidate of each), not
+// concatenated (octave 0 alone is 16 x 5 x 1024^2 f32 = 336 MB per call).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -34,11 +40,22 @@ namespace {
 // ---------------------------------------------------------------------------
 // Kernel A: refinement (OpenCV adjustLocalExtrema).
 // ---------------------------------------------------------------------------
+constexpr int kMaxOctaves = 16;
+
+// The candidates of octave o are start[o]..start[o + 1] - 1, and its DoG
+// (b, n_layers + 2, h[o], w[o]) f32 is at dog[o].
+struct RefineOctaves {
+  const float* dog[kMaxOctaves];
+  int h[kMaxOctaves], w[kMaxOctaves];
+  int start[kMaxOctaves + 1];
+  int n_octaves;
+};
+
 struct RefineParams {
   int n;          // candidates
   int b;          // images in the DoG batch
   int n_total;    // DoG layers per image (n_layers + 2)
-  int h, w;       // octave size
+  int h, w;       // the candidate's octave size
   int n_layers;   // candidates live on layers 1..n_layers
   int steps;      // refinement iterations
   int reach;      // largest move from the start, in pixels
@@ -111,18 +128,24 @@ __device__ void solve3(const float* s, float& xc, float& xr, float& xi) {
 // is rejected when an offset is not finite or above 1e6, when a step
 // leaves layers 1..n_layers, the 5-px border or the +-reach window around
 // its start, when it has not converged, or on the contrast and edge tests.
-// Rejected candidates keep their start and zero offsets.
-__global__ void refine_kernel(const float* __restrict__ dog, const int* __restrict__ img,
-                              const int* __restrict__ layer, const int* __restrict__ row,
-                              const int* __restrict__ col,
+// Rejected candidates keep their start and zero offsets. Candidates lie
+// octave by octave, so a warp reads one octave's DoG (but where an
+// octave's first candidate falls inside a warp).
+__global__ void refine_kernel(const __grid_constant__ RefineOctaves octaves,
+                              const int* __restrict__ img, const int* __restrict__ layer,
+                              const int* __restrict__ row, const int* __restrict__ col,
                               const unsigned char* __restrict__ valid,
                               int* __restrict__ out_i, float* __restrict__ out_f,
                               unsigned char* __restrict__ ok_out, RefineParams p) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= p.n) return;
+  int o = 0;
+  while (o + 1 < octaves.n_octaves && i >= octaves.start[o + 1]) ++o;
+  p.h = octaves.h[o];
+  p.w = octaves.w[o];
   const int l0 = layer[i], r0 = row[i], c0 = col[i];
   const int im = min(max(img[i], 0), p.b - 1);
-  const float* d = dog + static_cast<long long>(im) * p.n_total * p.h * p.w;
+  const float* d = octaves.dog[o] + static_cast<long long>(im) * p.n_total * p.h * p.w;
   bool ok = valid[i] != 0;
   bool converged = false;
   int l = l0, dr = 0, dc = 0;
@@ -515,21 +538,35 @@ const char* sift_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// dog (B, n_layers + 2, H, W) f32; per candidate img, layer, row, col
-// (int32) and valid (uint8). Writes out_i (3, n) int32 = (layer, row,
-// col), out_f (4, n) f32 = (xr, xc, xi, contrast) and ok (n) uint8.
-int sift_refine_f32(const float* dog, const int* img, const int* layer, const int* row,
-                    const int* col, const unsigned char* valid, int* out_i, float* out_f,
-                    unsigned char* ok, int n, int b, int h, int w, int n_layers, int steps,
-                    int reach, float contrast_threshold, float edge_threshold, int device,
+// table (4, n_octaves) int64 (host memory): per octave o the address of
+// its DoG (B, n_layers + 2, H, W) f32, H, W and the number of its
+// candidates, which lie octave after octave; per candidate img, layer,
+// row, col (int32) and valid (uint8). Writes out_i (3, n) int32 = (layer,
+// row, col), out_f (4, n) f32 = (xr, xc, xi, contrast) and ok (n) uint8,
+// n the sum of the counts. One launch.
+int sift_refine_f32(const long long* table, int n_octaves, const int* img, const int* layer,
+                    const int* row, const int* col, const unsigned char* valid, int* out_i,
+                    float* out_f, unsigned char* ok, int b, int n_layers, int steps, int reach,
+                    float contrast_threshold, float edge_threshold, int device,
                     void* stream_ptr) {
+  if (n_octaves < 1 || n_octaves > kMaxOctaves) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  RefineParams p{n, b, n_layers + 2, h, w, n_layers, steps, reach, contrast_threshold,
+  RefineOctaves octaves{};
+  octaves.n_octaves = n_octaves;
+  for (int o = 0; o < n_octaves; ++o) {
+    octaves.dog[o] = reinterpret_cast<const float*>(table[o]);
+    octaves.h[o] = static_cast<int>(table[n_octaves + o]);
+    octaves.w[o] = static_cast<int>(table[2 * n_octaves + o]);
+    octaves.start[o + 1] = octaves.start[o] + static_cast<int>(table[3 * n_octaves + o]);
+  }
+  const int n = octaves.start[n_octaves];
+  if (n == 0) return cudaSuccess;
+  RefineParams p{n, b, n_layers + 2, 0, 0, n_layers, steps, reach, contrast_threshold,
                  edge_threshold};
   const int threads = 128;
   refine_kernel<<<(n + threads - 1) / threads, threads, 0,
-                  static_cast<cudaStream_t>(stream_ptr)>>>(dog, img, layer, row, col, valid,
+                  static_cast<cudaStream_t>(stream_ptr)>>>(octaves, img, layer, row, col, valid,
                                                            out_i, out_f, ok, p);
   return cudaGetLastError();
 }

@@ -18,11 +18,19 @@ its reciprocal (``conv.py:242-246``), which can move a value by one step.
 Bound, per 128 images at 224^2 (VGG16): kernel 7 at conv1 and conv3 is
 473.5 GFLOP, 0.48 ms at the card's bf16 rate; kernel 8 is 473.5 or 236.8
 GOP, 0.24 or 0.12 ms at its int8 rate. Operations bound all of them; see
-the source for the design. A kernel-8 call is three launches: each
-image's max |x|, the quantise pass (into ``(B, H, W, Cp)`` int8, Cin
-padded with zeros to a multiple of 32) and the conv on ``wgmma``, which
-reads the weights in the layout of :func:`pack_q8_weights`, built once
-per weight tensor.
+the source for the design. Kernel 7 in bf16 and kernel 8's conv are one
+kernel on ``wgmma`` with TMA, which reads the weights in the layout of
+:func:`pack_bf16_weights` or :func:`pack_q8_weights`, built once per
+weight tensor. A kernel-7 call in bf16 is one launch (two where Cin is no
+multiple of 16: the channels are first zero-padded to one). A kernel-8
+call is three launches: each image's max |x|, the quantise pass (into
+``(B, H, W, Cp)`` int8, Cin padded with zeros to a multiple of 32) and the
+conv.
+
+ReLU and the 2x2 max carry NaN in the kernels as ``torch.relu`` and
+``F.max_pool2d`` do in the plain versions, and kernel 8's amax does as
+:func:`activation_scale` does: an image that holds a NaN comes out NaN
+where its plain version does.
 """
 from __future__ import annotations
 
@@ -46,12 +54,15 @@ __all__ = [
     "conv3x3_relu_maxpool_q8",
     "conv3x3_q8",
     "pack_q8_weights",
+    "pack_bf16_weights",
 ]
 
 # A kernel block computes 64 output channels; the wrappers take multiples of it.
 _COUT_MULTIPLE = 64
-# Kernel 8's k-step in input channels: it pads Cin to a multiple of it.
-_K_STEP = 32
+# The wgmma kernel's chunk in input channels (two 16-byte blocks: one
+# k-step per tap); Cin is zero-padded to a multiple of it.
+_K_STEP = 32  # kernel 8, int8
+_K_STEP_BF16 = 16  # kernel 7 in bf16
 
 
 def _scale_shape(t: torch.Tensor) -> tuple:
@@ -226,10 +237,10 @@ def _check_aligned(**tensors) -> None:
 
 
 def _too_large(x: torch.Tensor, cout: int) -> bool:
-    """Past the kernels' grid (images, and kernel 8's 32x8 tiles per image)
-    or 64-bit offsets."""
+    """Past the kernels' grid (images, and the wgmma kernel's 32x8 or 16x16
+    tiles per image) or 64-bit offsets."""
     b, h, w, cin = x.shape
-    tiles = -(-h // 32) * -(-w // 8)
+    tiles = max(-(-h // 32) * -(-w // 8), -(-h // 16) * -(-w // 16))
     per_image = h * w * _padded_channels(cin)  # the quantise pass's 32-bit offsets
     return (b > 65535 or tiles > 65535 or per_image >= 2**31
             or b * h * w * max(cout, cin + _K_STEP) >= 2**62)
@@ -244,8 +255,12 @@ def conv3x3_relu_maxpool(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> t
     does; ``b (Cout,)``. Cout must be a multiple of 64. Returns ``(B, H // 2,
     W // 2, Cout)`` in ``x.dtype``, accumulated in float32. CPU tensors take
     :func:`conv3x3_relu_maxpool_reference`; CUDA tensors launch the kernel
-    (bf16 on the tensor cores, float32 on the CUDA cores) or raise.
-    ``launches`` counts the kernel's launches.
+    (bf16 on the tensor cores, float32 on the CUDA cores) or raise. In bf16
+    the kernel reads ``w`` packed by :func:`pack_bf16_weights`, kept on
+    ``w``, and, for a Cin that is no multiple of 16, ``x`` zero-padded to
+    one in a pass of its own (TMA reads 16-byte channel blocks; the main
+    path's Cin, 64 and 128, needs none). ``launches`` counts the kernel's
+    launches.
     """
     _check(x, w, b, (torch.float32, torch.bfloat16))
     if x.device.type == "cpu":
@@ -254,50 +269,70 @@ def conv3x3_relu_maxpool(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> t
     cout = w.shape[0]
     if _too_large(x, cout):
         raise ValueError(f"input too large for the kernel: {tuple(x.shape)}, Cout={cout}")
-    w = w.to(x.dtype)
     b = b.to(torch.float32)
-    _check_aligned(x=x, w=w)
     out = torch.empty((bsz, h // 2, wd // 2, cout), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
     lib = _library()
     dev, stream = launch_target(x.device)
-    fn = lib.conv_pool_bf16 if x.dtype == torch.bfloat16 else lib.conv_pool_f32
+    if x.dtype == torch.bfloat16:
+        cp = _padded_channels(cin, _K_STEP_BF16)
+        x = x if cp == cin else F.pad(x, (0, cp - cin))
+        w = _packed_weights(w, pack_bf16_weights)
+        fn = lib.conv_pool_bf16
+    else:
+        cp, w = cin, w.to(x.dtype)
+        fn = lib.conv_pool_f32
+    _check_aligned(x=x, w=w)
     err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
-             bsz, h, wd, cin, cout, dev, stream)
+             bsz, h, wd, cp, cout, dev, stream)
     _raise_on(lib, err, "conv3x3_relu_maxpool")
     conv3x3_relu_maxpool.launches += 1
     return out
 
 
-def _padded_channels(cin: int) -> int:
-    """Kernel 8's channel count: Cin rounded up to the 32-channel k-step."""
-    return -(-cin // _K_STEP) * _K_STEP
+def _padded_channels(cin: int, step: int = _K_STEP) -> int:
+    """Cin rounded up to the wgmma kernel's chunk of ``step`` channels."""
+    return -(-cin // step) * step
+
+
+def _pack(w: torch.Tensor, step: int) -> torch.Tensor:
+    """``w (Cout, 3, 3, Cin)`` as ``(Cout / 64, Cp / block, 9, 64, block)``,
+    Cin zero-padded to ``Cp`` (a multiple of ``step``) and ``block`` the
+    channels in 16 bytes. For each tile of 64 output channels (a kernel
+    block's), block of input channels and tap ``3 * dy + dx``: the 64 rows
+    of 16 bytes that one wgmma B operand reads (K-major core matrices). A
+    tile's chunk of ``step`` channels is contiguous, so one bulk copy
+    stages it."""
+    cout, kh, kw, cin = w.shape
+    cp, block = _padded_channels(cin, step), 16 // w.element_size()
+    w = w.reshape(cout, kh * kw, cin)
+    if cp != cin:
+        w = F.pad(w, (0, cp - cin))
+    w = w.reshape(cout // _COUT_MULTIPLE, _COUT_MULTIPLE, kh * kw, cp // block, block)
+    return w.permute(0, 3, 2, 1, 4).contiguous()
 
 
 def pack_q8_weights(wq: torch.Tensor) -> torch.Tensor:
     """Kernel 8's weight layout: ``wq (Cout, 3, 3, Cin)`` int8 as ``(Cout / 64,
-    Cp / 16, 9, 64, 16)``, Cin zero-padded to ``Cp`` (a multiple of 32). For
-    each tile of 64 output channels (a kernel block's), block of 16 input
-    channels and tap ``3 * dy + dx``: the 64 rows of 16 bytes that one wgmma
-    B operand reads (K-major core matrices). A tile's 32-channel chunk is
-    contiguous, so one bulk copy stages it."""
-    cout, kh, kw, cin = wq.shape
-    cp = _padded_channels(cin)
-    w = wq.reshape(cout, kh * kw, cin)
-    if cp != cin:
-        w = F.pad(w, (0, cp - cin))
-    w = w.reshape(cout // _COUT_MULTIPLE, _COUT_MULTIPLE, kh * kw, cp // 16, 16)
-    return w.permute(0, 3, 2, 1, 4).contiguous()
+    Cp / 16, 9, 64, 16)``, Cin zero-padded to ``Cp`` (a multiple of 32)."""
+    return _pack(wq, _K_STEP)
 
 
-def _packed_weights(wq: torch.Tensor) -> torch.Tensor:
-    """``pack_q8_weights(wq)``, kept on ``wq`` until it changes in place: a
-    trunk's convs call kernel 8 with the same ``wq`` on every encode."""
-    hit = getattr(wq, "_pyvisim_packed", None)
-    if hit is None or hit[0] != wq._version:
-        hit = (wq._version, pack_q8_weights(wq))
-        wq._pyvisim_packed = hit
+def pack_bf16_weights(w: torch.Tensor) -> torch.Tensor:
+    """Kernel 7's weight layout in bf16: ``w (Cout, 3, 3, Cin)``, rounded to
+    bf16, as ``(Cout / 64, Cp / 8, 9, 64, 8)``, Cin zero-padded to ``Cp`` (a
+    multiple of 16)."""
+    return _pack(w.to(torch.bfloat16), _K_STEP_BF16)
+
+
+def _packed_weights(w: torch.Tensor, pack) -> torch.Tensor:
+    """``pack(w)``, kept on ``w`` until it changes in place: a trunk's convs
+    call kernels 7 and 8 with the same weights on every encode."""
+    hit = getattr(w, "_pyvisim_packed", None)
+    if hit is None or hit[0] != (w._version, pack):
+        hit = ((w._version, pack), pack(w))
+        w._pyvisim_packed = hit
     return hit[1]
 
 
@@ -355,8 +390,8 @@ def _launch_q8(x, wq, sw, b, *, pool: bool, relu: bool, return_acc: bool):
     dev, stream = launch_target(x.device)
     sx = _scale_launch(lib, x, dev, stream)
     xq = _quantize_launch(lib, x, sx, dev, stream)
-    _conv_launch(lib, xq, _packed_weights(wq), sw, sx, b, out, acc, pool=pool, relu=relu,
-                 dev=dev, stream=stream)
+    _conv_launch(lib, xq, _packed_weights(wq, pack_q8_weights), sw, sx, b, out, acc,
+                 pool=pool, relu=relu, dev=dev, stream=stream)
     return ((out, acc) if return_acc else out), True
 
 

@@ -14,9 +14,10 @@ lane alignment and chunk skipping of the JAX package have no counterpart.
 
 Bound: all three read small windows of large tensors and do a few tens of
 operations per value read, so the bytes of the windows bound them (see
-the source). Each wrapper takes its plain version for CPU tensors and
-launches its kernel for CUDA tensors, and counts the launches in
-``.launches``.
+the source). ``refine`` takes the candidates of every octave of a SIFT
+call at once and launches its kernel once for all of them. Each wrapper
+takes its plain version for CPU tensors and launches its kernel for CUDA
+tensors, and counts the launches in ``.launches``.
 
 The plain versions are ports of the JAX package's XLA path
 (``_refine_candidates``, ``_orientation``, ``_descriptor``). The refinement
@@ -81,7 +82,7 @@ def _library() -> ctypes.CDLL:
     lib = load_library("sift_window")
     if not getattr(lib, "_pyvisim_typed", False):
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.sift_refine_f32.argtypes = [ptr] * 9 + [i32] * 7 + [f32, f32, i32, ptr]
+        lib.sift_refine_f32.argtypes = [ptr, i32] + [ptr] * 8 + [i32] * 4 + [f32, f32, i32, ptr]
         lib.sift_refine_f32.restype = i32
         i64 = ctypes.c_longlong
         lib.sift_orientation.argtypes = ([ptr, i32, ptr, i32] + [ptr] * 11
@@ -104,6 +105,8 @@ def _raise_on(lib, err: int, what: str) -> None:
 _PER_ITEM = {"img", "octave", "layer", "row", "col", "scl", "theta", "radius", "valid"}
 _I32, _F32, _BOOL = (torch.int32,), (torch.float32,), (torch.bool,)
 _ATLAS = (torch.bfloat16, torch.float32)
+# Octaves one refinement launch takes (the kernel's parameter table).
+_MAX_OCTAVES = 16
 # Histogram weights the descriptor's plain version holds at once.
 _CHUNK_ELEMS = 1 << 25
 
@@ -184,30 +187,35 @@ def _solve3(s):
     return xc, xr, xi
 
 
-def _check_refine(dog, img, layer, row, col, valid, n_layers: int) -> int:
-    n = _check(
-        dict(dog=dog, img=img, layer=layer, row=row, col=col, valid=valid),
-        dict(dog=_F32, img=_I32, layer=_I32, row=_I32, col=_I32, valid=_BOOL),
-    )
-    if dog.dim() != 4 or dog.shape[1] != n_layers + 2:
-        raise ValueError(f"dog must be (B, n_layers + 2 = {n_layers + 2}, H, W), "
-                         f"got {tuple(dog.shape)}")
+_REFINE_DTYPES = dict(img=_I32, layer=_I32, row=_I32, col=_I32, valid=_BOOL)
+
+
+def _check_refine(dogs, img, layer, row, col, valid, counts, n_layers: int) -> int:
+    """The per-candidate tensors as ``_check`` wants them; ``dogs`` a list of
+    1 to 16 contiguous f32 ``(B, n_layers + 2, H, W)`` DoGs of one B on the
+    candidates' device, ``counts`` one int per DoG summing to the number of
+    candidates. Reads only metadata: it runs on every SIFT call."""
+    n = _check(dict(img=img, layer=layer, row=row, col=col, valid=valid), _REFINE_DTYPES)
+    if not isinstance(dogs, (list, tuple)) or not 1 <= len(dogs) <= _MAX_OCTAVES:
+        raise ValueError(f"dogs must be a list of 1 to {_MAX_OCTAVES} octaves' DoGs")
+    for o, dog in enumerate(dogs):
+        if not isinstance(dog, torch.Tensor) or dog.dtype != torch.float32:
+            raise TypeError(f"dogs[{o}] must be a float32 tensor")
+        if dog.device != img.device or not dog.is_contiguous():
+            raise ValueError(f"dogs[{o}] must be contiguous on {img.device}")
+        if dog.dim() != 4 or dog.shape[1] != n_layers + 2 or dog.shape[0] != dogs[0].shape[0]:
+            raise ValueError(f"dogs[{o}] must be (B, n_layers + 2 = {n_layers + 2}, H, W) "
+                             f"with the B of dogs[0], got {tuple(dog.shape)}")
+    if len(counts) != len(dogs) or min(counts) < 0 or sum(counts) != n:
+        raise ValueError(f"counts must give each of the {len(dogs)} octaves' candidates, "
+                         f"{n} in all; got {list(counts)}")
     return n
 
 
-def refine_reference(
-    dog, img, layer, row, col, valid, *, n_layers: int, steps: int, reach: int,
-    contrast_threshold: float, edge_threshold: float, return_steps: bool = False,
-):
-    """Plain version of :func:`refine` (OpenCV adjustLocalExtrema, as
-    ``pyvisim_tpu/ops/sift.py:_refine_candidates``): up to ``steps``
-    quadratic fits per candidate, a step to the rounded offset after each,
-    until every offset is below 0.5; rejection on offsets that are not
-    finite or above 1e6, on leaving layers 1..n_layers, the 5-px border
-    or the ``+-reach`` window, on not converging, and on the contrast and
-    edge tests. With ``return_steps`` also the number of fits each
-    candidate took."""
-    _check_refine(dog, img, layer, row, col, valid, n_layers)
+def _refine_octave(dog, img, layer, row, col, valid, *, n_layers, steps, reach,
+                   contrast_threshold, edge_threshold):
+    """:func:`refine_reference` on one octave's DoG: its Refined, and the
+    number of fits each candidate took."""
     h, w = dog.shape[2], dog.shape[3]
     n = valid.numel()
     zeros_i = torch.zeros(n, dtype=torch.int32, device=dog.device)
@@ -258,43 +266,68 @@ def refine_reference(
         torch.where(ok, xr, zero), torch.where(ok, xc, zero), torch.where(ok, xi, zero),
         torch.where(ok, contr, zero), ok,
     )
-    return (out, fits) if return_steps else out
+    return out, fits
+
+
+def refine_reference(
+    dogs, img, layer, row, col, valid, *, counts, n_layers: int, steps: int, reach: int,
+    contrast_threshold: float, edge_threshold: float, return_steps: bool = False,
+):
+    """Plain version of :func:`refine` (OpenCV adjustLocalExtrema, as
+    ``pyvisim_tpu/ops/sift.py:_refine_candidates``), one octave at a time:
+    up to ``steps`` quadratic fits per candidate, a step to the rounded
+    offset after each, until every offset is below 0.5; rejection on
+    offsets that are not finite or above 1e6, on leaving layers
+    1..n_layers, the 5-px border or the ``+-reach`` window, on not
+    converging, and on the contrast and edge tests. With ``return_steps``
+    also the number of fits each candidate took."""
+    _check_refine(dogs, img, layer, row, col, valid, counts, n_layers)
+    kw = dict(n_layers=n_layers, steps=steps, reach=reach,
+              contrast_threshold=contrast_threshold, edge_threshold=edge_threshold)
+    parts = [_refine_octave(dog, *(t[start:start + k] for t in (img, layer, row, col, valid)), **kw)
+             for dog, start, k in zip(dogs, np.cumsum([0, *counts[:-1]]).tolist(), counts)]
+    out = Refined(*(torch.cat(field) for field in zip(*(ref for ref, _ in parts))))
+    return (out, torch.cat([fits for _, fits in parts])) if return_steps else out
 
 
 def refine(
-    dog, img, layer, row, col, valid, *, n_layers: int, steps: int, reach: int,
+    dogs, img, layer, row, col, valid, *, counts, n_layers: int, steps: int, reach: int,
     contrast_threshold: float, edge_threshold: float,
 ) -> Refined:
-    """Subpixel refinement of DoG extrema.
+    """Subpixel refinement of DoG extrema, every octave in one call.
 
-    ``dog (B, n_layers + 2, H, W)`` f32 (0..255 scale); per candidate the
-    image ``img``, ``layer`` in 1..n_layers, ``row``, ``col`` (int32) and
-    ``valid`` (bool). CPU tensors take :func:`refine_reference`; CUDA
-    tensors launch the kernel, one thread per candidate.
+    ``dogs`` the octaves' ``(B, n_layers + 2, H, W)`` f32 DoGs (0..255
+    scale), at most 16; ``counts`` the number of candidates of each octave,
+    which lie octave after octave; per candidate the image ``img``,
+    ``layer`` in 1..n_layers, ``row``, ``col`` (int32) and ``valid``
+    (bool). CPU tensors take :func:`refine_reference`; CUDA tensors launch
+    the kernel once, one thread per candidate.
     """
-    n = _check_refine(dog, img, layer, row, col, valid, n_layers)
+    n = _check_refine(dogs, img, layer, row, col, valid, counts, n_layers)
     kw = dict(n_layers=n_layers, steps=steps, reach=reach,
               contrast_threshold=contrast_threshold, edge_threshold=edge_threshold)
-    if dog.device.type == "cpu":
-        return refine_reference(dog, img, layer, row, col, valid, **kw)
-    if dog.numel() >= 2**62:
-        raise ValueError(f"DoG too large for the kernel: {tuple(dog.shape)}")
-    dev = dog.device
-    out_i = torch.empty((3, n), dtype=torch.int32, device=dev)
-    out_f = torch.empty((4, n), dtype=torch.float32, device=dev)
-    ok = torch.empty((n,), dtype=torch.bool, device=dev)
+    if img.device.type == "cpu":
+        return refine_reference(dogs, img, layer, row, col, valid, counts=counts, **kw)
+    if any(dog.numel() >= 2**62 for dog in dogs) or n >= 2**31:
+        raise ValueError(f"DoG or candidates too large for the kernel: {n} candidates")
+    # One allocation: (layer, row, col) int32, (xr, xc, xi, contrast) f32, ok.
+    out = torch.empty((8, n), dtype=torch.int32, device=img.device)
+    ok = out[7].view(torch.uint8)[:n].view(torch.bool)
     if n:
         lib = _library()
-        index, stream = launch_target(dev)
+        index, stream = launch_target(img.device)
+        table = (ctypes.c_longlong * (4 * len(dogs)))(
+            *(dog.data_ptr() for dog in dogs), *(dog.shape[2] for dog in dogs),
+            *(dog.shape[3] for dog in dogs), *counts)
         err = lib.sift_refine_f32(
-            dog.data_ptr(), img.data_ptr(), layer.data_ptr(), row.data_ptr(), col.data_ptr(),
-            valid.data_ptr(), out_i.data_ptr(), out_f.data_ptr(), ok.data_ptr(),
-            n, dog.shape[0], dog.shape[2], dog.shape[3], n_layers, steps, reach,
-            contrast_threshold, edge_threshold, index, stream,
+            table, len(dogs), img.data_ptr(), layer.data_ptr(), row.data_ptr(), col.data_ptr(),
+            valid.data_ptr(), out.data_ptr(), out[3].data_ptr(), ok.data_ptr(),
+            dogs[0].shape[0], n_layers, steps, reach, contrast_threshold, edge_threshold,
+            index, stream,
         )
         _raise_on(lib, err, "SIFT refinement")
         refine.launches += 1
-    return Refined(out_i[0], out_i[1], out_i[2], out_f[0], out_f[1], out_f[2], out_f[3], ok)
+    return Refined(*out[:3].unbind(), *out[3:7].view(torch.float32).unbind(), ok)
 
 
 refine.launches = 0

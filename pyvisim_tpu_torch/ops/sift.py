@@ -198,25 +198,35 @@ def _rank_candidates(dog_o: torch.Tensor, budget: int, cfg: SiftConfig):
     return vals, layer, r, c, vals > 0
 
 
-def _detect_octave(dog_o: torch.Tensor, budget: int, cfg: SiftConfig) -> dict:
-    """Ranking and refinement of one octave of the batch: a dict of
-    (B, budget) per-candidate tensors."""
-    b = dog_o.shape[0]
-    _, layer, r, c, valid = _rank_candidates(dog_o, budget, cfg)
-    k = valid.shape[1]
-    img = torch.arange(b, dtype=torch.int32, device=dog_o.device).repeat_interleave(k)
+def _refine_octaves(dogs, ranked, cfg: SiftConfig) -> dict:
+    """Refinement of every octave's ranked candidates in one kernel call: a
+    dict of (B, sum of the octaves' budgets) per-candidate tensors, the
+    octaves side by side. The kernel takes the candidates octave after
+    octave, each octave's image after image."""
+    b, dev = dogs[0].shape[0], dogs[0].device
+    ks = [valid.shape[1] for *_, valid in ranked]
+    counts = [b * k for k in ks]
+
+    def flat(field: int) -> torch.Tensor:
+        return torch.cat([r[field].reshape(-1) for r in ranked])
+
+    img = torch.cat([torch.arange(b, dtype=torch.int32, device=dev).repeat_interleave(k)
+                     for k in ks])
     ref = kernels.refine(
-        dog_o.contiguous(), img, layer.reshape(-1), r.reshape(-1), c.reshape(-1),
-        valid.reshape(-1), n_layers=cfg.n_octave_layers, steps=cfg.refine_steps,
-        reach=cfg.refine_reach, contrast_threshold=cfg.contrast_threshold,
-        edge_threshold=cfg.edge_threshold,
+        [d.contiguous() for d in dogs], img, flat(1), flat(2), flat(3), flat(4), counts=counts,
+        n_layers=cfg.n_octave_layers, steps=cfg.refine_steps, reach=cfg.refine_reach,
+        contrast_threshold=cfg.contrast_threshold, edge_threshold=cfg.edge_threshold,
     )
-    layer, r, c, xr, xc, xi, contrast, ok = (t.reshape(b, k) for t in ref)
+    layer, r, c, xr, xc, xi, contrast, ok = (
+        torch.cat([part.reshape(b, k) for part, k in zip(t.split(counts), ks)], dim=1)
+        for t in ref)
     scl_oct = cfg.sigma * torch.pow(2.0, (layer.to(torch.float32) + xi) / cfg.n_octave_layers)
+    octave = torch.cat([torch.full((b, k), o, dtype=torch.int32, device=dev)
+                        for o, k in enumerate(ks)], dim=1)
     return {
         "layer": layer, "r": r, "c": c, "xr": xr, "xc": xc, "xi": xi, "scl_oct": scl_oct,
         "response": torch.where(ok, contrast.abs(), -1.0),
-        "valid": ok,
+        "valid": ok, "octave": octave,
     }
 
 
@@ -272,10 +282,10 @@ def _radius_class(scl: torch.Tensor, mult: float, radii) -> torch.Tensor:
 def _sift_core(base_batch: torch.Tensor, cfg: SiftConfig,
                on_stage: Callable[[str], None] | None = None) -> dict:
     """base_batch: (B, S, S) letterboxed grayscale, float 0..255 or uint8
-    (cast to f32 on the device). Detects and refines per octave, keeps the
-    global top ``max_keypoints`` by response, orients them, adds the
-    secondary-orientation duplicates re-ranked into the same budget, and
-    describes the survivors.
+    (cast to f32 on the device). Ranks each octave's candidates, refines
+    them all in one kernel call, keeps the global top ``max_keypoints`` by
+    response, orients them, adds the secondary-orientation duplicates
+    re-ranked into the same budget, and describes the survivors.
 
     Returns (B, max_keypoints[, 128]) tensors in ``process_size``
     coordinates: desc, x, y, size, theta, response, mask (rows sorted by
@@ -297,13 +307,9 @@ def _sift_core(base_batch: torch.Tensor, cfg: SiftConfig,
     gauss, dog = _build_pyramids(gaussian_blur_batch(up, sig_diff), cfg)
     mark("pyramid")
 
-    per_octave = []
-    for o in range(cfg.n_octaves):
-        out = _detect_octave(dog[o], cfg.octave_budget(o), cfg)
-        out["octave"] = torch.full_like(out["r"], o)
-        per_octave.append(out)
-    del dog
-    merged = {name: torch.cat([p[name] for p in per_octave], dim=1) for name in per_octave[0]}
+    ranked = [_rank_candidates(dog[o], cfg.octave_budget(o), cfg) for o in range(cfg.n_octaves)]
+    merged = _refine_octaves(dog, ranked, cfg)
+    del dog, ranked
     k = min(cfg.max_keypoints, merged["response"].shape[1])
     _, top = _stable_top(merged["response"], k)
     cand = {name: v.gather(1, top) for name, v in merged.items()}

@@ -294,3 +294,84 @@ def test_packed_q8_weights_give_the_plain_int32_sums(shape):
     _, want = tconv.conv3x3_q8_reference(tx, wq, sw, torch.from_numpy(bias), pool=False,
                                          return_acc=True)
     assert torch.equal(acc.round().to(torch.int32), want)
+
+
+@pytest.mark.parametrize("shape", PACKED_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_packed_bf16_weights_unpack_to_the_weights(shape):
+    """Kernel 7 in bf16 reads the weights packed as (Cout / 64, Cp / 8, 9,
+    64, 8), Cin zero-padded to Cp (a multiple of 16): unpacked, one channel
+    tile, 8 channels and one tap at a time as the wgmma tiles take them,
+    they are the weights rounded to bf16, and zeros past Cin."""
+    _, wk, _ = _inputs(shape, seed=6)
+    _, _, _, ci, co = shape
+    w = _ohwi(wk)
+    wp = tconv.pack_bf16_weights(w)
+    cp, n = -(-ci // 16) * 16, 64
+    assert tuple(wp.shape) == (co // n, cp // 8, 9, n, 8) and wp.is_contiguous()
+    assert wp.dtype == torch.bfloat16
+    unpacked = torch.zeros((co, 9, cp), dtype=torch.bfloat16)
+    for tile in range(co // n):
+        for blk in range(cp // 8):
+            for tap in range(9):
+                unpacked[n * tile : n * tile + n, tap, 8 * blk : 8 * blk + 8] = wp[tile, blk, tap]
+    assert not unpacked[..., ci:].any()
+    assert torch.equal(unpacked[..., :ci].reshape(co, 3, 3, ci), w.to(torch.bfloat16))
+
+
+def _nan_image(shape, seed, at):
+    """Inputs with one NaN in image 0 at pixel ``at``, channel 3, and the
+    same inputs without it."""
+    x, wk, bias = _inputs(shape, seed=seed)
+    clean = x.copy()
+    x[(0, *at, 3)] = np.nan
+    return x, clean, wk, bias
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_conv_relu_pool_reference_carries_nan_as_jax(dtype):
+    """One NaN in one image: NaN in each pooled output whose 2x2 window
+    holds a conv output that reads it (ReLU and the max carry it), as JAX's
+    reference gives; every other output as without the NaN."""
+    x, clean, wk, bias = _nan_image((2, 12, 16, 64, 64), seed=7, at=(5, 9))
+    jx = jnp.asarray(x).astype(dtype)
+    want = np.asarray(jconv.conv3x3_relu_maxpool_reference(
+        jx, jnp.asarray(wk), jnp.asarray(bias)).astype(jnp.float32))
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    w, b = _ohwi(wk), torch.from_numpy(bias)
+    got = tconv.conv3x3_relu_maxpool(tx, w, b).float()
+    nan = np.isnan(want)
+    # conv rows 4-6 and columns 8-10 read pixel (5, 9): pooled rows 2-3, columns 4-5
+    assert nan[0, 2:4, 4:6].all() and nan.sum() == 4 * 64
+    np.testing.assert_array_equal(torch.isnan(got).numpy(), nan)
+    before = tconv.conv3x3_relu_maxpool(torch.from_numpy(clean).to(tx.dtype), w, b).float()
+    assert torch.equal(got[~torch.isnan(got)], before[~torch.isnan(got)])
+    diff = (got - torch.from_numpy(want)).abs()[~torch.from_numpy(nan)]
+    if dtype == "float32":
+        assert diff.max().item() <= 1e-4
+    else:
+        ulp = _bf16_ulp(torch.from_numpy(want))[~torch.from_numpy(nan)]
+        assert bool((diff <= ulp + 1e-6).all())
+
+
+@pytest.mark.parametrize("pool", [True, False], ids=["pooled", "unpooled"])
+def test_q8_reference_carries_nan_as_jax(pool):
+    """One NaN in one image makes its scale NaN, so every output of that
+    image is NaN, as the Pallas q8 kernel (pooled, in interpret mode) and
+    QuantConv (unpooled, no ReLU) give; the other image is unchanged."""
+    x, clean, wk, bias = _nan_image((2, 16, 32, 64, 64), seed=8, at=(7, 11))
+    wq, sw = tconv.quantize_weight(_ohwi(wk))
+    wq, tx, b = wq.contiguous(), torch.from_numpy(x), torch.from_numpy(bias)
+    if pool:
+        want = np.asarray(jconv.conv3x3_relu_maxpool_q8(
+            jnp.asarray(x), jnp.asarray(wk), jnp.asarray(bias), interpret=True))
+        run = lambda t: tconv.conv3x3_relu_maxpool_q8(t, wq, sw, b)  # noqa: E731
+    else:
+        jmod = JQuantConv(features=64, dtype=jnp.float32)
+        want = np.asarray(jmod.apply({"params": {"kernel": jnp.asarray(wk), "bias": jnp.asarray(bias)}},
+                                     jnp.asarray(x)))
+        run = lambda t: tconv.conv3x3_q8(t, wq, sw, b, relu=False)  # noqa: E731
+    got = run(tx)
+    assert np.isnan(want[0]).all() and not np.isnan(want[1]).any()
+    assert bool(torch.isnan(got[0]).all())
+    assert torch.equal(got[1], run(torch.from_numpy(clean))[1])
+    np.testing.assert_allclose(got[1].numpy(), want[1], rtol=1e-5, atol=1e-4)

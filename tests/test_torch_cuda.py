@@ -253,11 +253,13 @@ def pyramid():
     return tsift._build_pyramids(tsift.gaussian_blur_batch(up, 1.249), SIFT_CFG)
 
 
-def _refine_both(dog, img, layer, row, col, valid):
-    got = tsw.refine(dog, img, layer, row, col, valid, **REFINE_KW)
-    again = tsw.refine(dog, img, layer, row, col, valid, **REFINE_KW)
-    want = tsw.refine_reference(dog, img, layer, row, col, valid, **REFINE_KW)
+def _refine_both(dogs, img, layer, row, col, valid, counts):
+    before = tsw.refine.launches
+    got = tsw.refine(dogs, img, layer, row, col, valid, counts=counts, **REFINE_KW)
+    again = tsw.refine(dogs, img, layer, row, col, valid, counts=counts, **REFINE_KW)
+    want = tsw.refine_reference(dogs, img, layer, row, col, valid, counts=counts, **REFINE_KW)
     torch.cuda.synchronize()
+    assert tsw.refine.launches == before + (2 if img.numel() else 0)  # one launch a call
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     assert torch.equal(got.ok, want.ok)
     for name in ("layer", "row", "col"):
@@ -268,19 +270,44 @@ def _refine_both(dog, img, layer, row, col, valid):
     return got
 
 
-def test_refine_kernel_matches_plain_version(cuda_device, pyramid):
-    _, dogs = pyramid
-    kept = 0
-    for o, dog in enumerate(dogs):
-        _, layer, r, c, valid = tsift._rank_candidates(dog, SIFT_CFG.octave_budget(o), SIFT_CFG)
+def _ranked_octaves(dogs, budgets, device):
+    """Each octave's ranked candidates at its budget, as one refine call's
+    arguments (octave after octave, image after image)."""
+    parts, counts = [], []
+    for dog, budget in zip(dogs, budgets):
+        _, layer, r, c, valid = tsift._rank_candidates(dog, budget, SIFT_CFG)
         b, k = valid.shape
         img = torch.arange(b, dtype=torch.int32).repeat_interleave(k)
-        args = [t.to(cuda_device).contiguous() for t in
-                (dog, img, layer.reshape(-1), r.reshape(-1), c.reshape(-1), valid.reshape(-1))]
-        before = tsw.refine.launches
-        kept += int(_refine_both(*args).ok.sum())
-        assert tsw.refine.launches == before + 2
-    assert kept > 20
+        parts.append((img, layer.reshape(-1), r.reshape(-1), c.reshape(-1), valid.reshape(-1)))
+        counts.append(b * k)
+    cand = [torch.cat(field).to(device) for field in zip(*parts)]
+    return [d.to(device).contiguous() for d in dogs], *cand, counts
+
+
+def test_refine_kernel_matches_plain_version(cuda_device, pyramid):
+    """Every octave of the SIFT core's call in one launch."""
+    _, dogs = pyramid
+    budgets = [SIFT_CFG.octave_budget(o) for o in range(len(dogs))]
+    assert int(_refine_both(*_ranked_octaves(dogs, budgets, cuda_device)).ok.sum()) > 20
+
+
+# (octaves, budget of each): the core's 4 octaves at ragged budgets (one
+# candidate, none, odd counts), then 1, 7 and 8 octaves (the pyramid's
+# DoGs again, at sizes 64..8), and the 16 the kernel takes.
+OCTAVE_LAYOUTS = [
+    (4, [1, 37, 0, 5]), (1, [29]), (7, [96, 48, 24, 12, 7, 3, 1]),
+    (8, [33, 0, 17, 9, 96, 1, 2, 50]), (16, [3] * 16),
+]
+
+
+@pytest.mark.parametrize("layout", OCTAVE_LAYOUTS, ids=lambda l: f"{l[0]}oct")
+def test_refine_kernel_in_one_launch_at_ragged_budgets(cuda_device, pyramid, layout):
+    _, dogs = pyramid
+    n_oct, budgets = layout
+    picked = [dogs[o % len(dogs)] for o in range(n_oct)]
+    args = _ranked_octaves(picked, budgets, cuda_device)
+    got = _refine_both(*args)
+    assert got.ok.numel() == sum(args[-1])
 
 
 def test_refine_kernel_ragged_inputs(cuda_device, pyramid):
@@ -295,10 +322,10 @@ def test_refine_kernel_ragged_inputs(cuda_device, pyramid):
     imgs = torch.tensor([0, 1, 2, 0, 1, 2, 0, 1], **i32)
     valid = torch.ones(8, dtype=torch.bool, device=cuda_device)
     for n in (1, 3, 8):
-        _refine_both(dog, imgs[:n], layers[:n], rows[:n], cols[:n], valid[:n])
-    out = _refine_both(dog, imgs, layers, rows, cols, torch.zeros_like(valid))
+        _refine_both([dog], imgs[:n], layers[:n], rows[:n], cols[:n], valid[:n], [n])
+    out = _refine_both([dog], imgs, layers, rows, cols, torch.zeros_like(valid), [8])
     assert not out.ok.any() and torch.equal(out.row, rows) and not out.xr.any()
-    empty = tsw.refine(dog, imgs[:0], layers[:0], rows[:0], cols[:0], valid[:0], **REFINE_KW)
+    empty = _refine_both([dog, dog], imgs[:0], layers[:0], rows[:0], cols[:0], valid[:0], [0, 0])
     assert empty.ok.numel() == 0
 
 
@@ -444,13 +471,17 @@ def test_window_kernels_all_invalid_and_refusals(cuda_device, atlases):
     cand = [torch.zeros(2, dtype=torch.int32, device=cuda_device) for _ in range(4)]
     ok = torch.ones(2, dtype=torch.bool, device=cuda_device)
     with pytest.raises(TypeError):
-        tsw.refine(dog.double(), *cand, ok, **REFINE_KW)
+        tsw.refine([dog.double()], *cand, ok, counts=[2], **REFINE_KW)
     with pytest.raises(ValueError):
-        tsw.refine(dog[0], *cand, ok, **REFINE_KW)
+        tsw.refine([dog[0]], *cand, ok, counts=[2], **REFINE_KW)
     with pytest.raises(ValueError):
-        tsw.refine(dog, *cand, ok.cpu(), **REFINE_KW)
+        tsw.refine([dog], *cand, ok.cpu(), counts=[2], **REFINE_KW)
     with pytest.raises(ValueError):
-        tsw.refine(dog[:, :4].contiguous(), *cand, ok, **REFINE_KW)
+        tsw.refine([dog[:, :4].contiguous()], *cand, ok, counts=[2], **REFINE_KW)
+    with pytest.raises(ValueError):
+        tsw.refine([dog, dog.cpu()], *cand, ok, counts=[1, 1], **REFINE_KW)
+    with pytest.raises(ValueError):
+        tsw.refine([dog] * 17, *cand, ok, counts=[2] + [0] * 16, **REFINE_KW)
 
 
 # ---- kernels 7 and 8: fused 3x3 conv + ReLU (+ 2x2 pool), float and int8 ----
@@ -505,6 +536,92 @@ def test_conv_relu_pool_kernel_matches_plain_version(cuda_device, shape, dtype):
         # value near a bf16 rounding boundary may round one step apart.
         assert bool((diff <= _bf16_ulp(want) + 1e-6).all())
         assert (diff == 0).float().mean().item() >= 0.99
+
+
+def _check_bf16_conv(x, wt, bias):
+    """Kernel 7 in bf16 against its plain version: one bf16 step at most,
+    >= 99 % exact, two calls bit-equal, one launch a call.
+
+    The step is taken at the output, but not below 2^-20 of the largest
+    output: the tensor cores add the 9 * Cin products in f32 along the
+    k-steps, and at 2 x 112^2 x 128 on signed inputs their outputs lie up
+    to 2.8e-6 from float64 beyond the final rounding, the plain version's
+    up to 7.7e-7 (conv_probe.py, on the H100). An output near zero, a
+    cancelling sum, cannot then be held to a bf16 step of its own tiny
+    value: there 1 of 802,816 outputs, 1.895e-5 against 1.764e-5."""
+    before = tconv.conv3x3_relu_maxpool.launches
+    got = tconv.conv3x3_relu_maxpool(x, wt, bias)
+    again = tconv.conv3x3_relu_maxpool(x, wt, bias)
+    want = tconv.conv3x3_relu_maxpool_reference(x, wt, bias)
+    torch.cuda.synchronize()
+    assert tconv.conv3x3_relu_maxpool.launches == before + 2
+    assert torch.equal(got, again)
+    diff = (got.float() - want.float()).abs()
+    floor = 2.0**-20 * want.float().abs().max().item()
+    assert bool((diff <= _bf16_ulp(want) + max(floor, 1e-6)).all())
+    assert (diff == 0).float().mean().item() >= 0.99
+
+
+# (B, H, W, Cin, Cout): the trunk's conv1 and conv3 sides (224^2 at Cin 64,
+# 112^2 at 128, whole 16x16 tiles), sides that cut the last tile (17x33,
+# 31x15, 40x24), a Cin of 24 (padded to 32) and 48 (three chunks), Cout
+# of 192.
+BF16_SHAPES = [
+    (1, 224, 224, 64, 64), (2, 112, 112, 128, 128), (1, 17, 33, 64, 64), (2, 31, 15, 24, 128),
+    (1, 40, 24, 48, 192),
+]
+
+
+@pytest.mark.parametrize("shape", BF16_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_conv_relu_pool_bf16_kernel_at_trunk_and_ragged_sides(cuda_device, shape):
+    x, wt, bias = _conv_inputs(shape, torch.bfloat16, cuda_device, seed=4)
+    _check_bf16_conv(x.relu(), wt, bias)
+    _check_bf16_conv(x, wt.to(torch.bfloat16), bias)
+
+
+def _nan_batch(shape, dtype, device, seed):
+    """Conv inputs with one NaN in image 0 at (5, 9), channel 2, and the
+    same batch without it."""
+    x, wt, bias = _conv_inputs(shape, dtype, device, seed=seed)
+    clean = x.clone()
+    x[0, 5, 9, 2] = float("nan")
+    return x, clean, wt, bias
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+def test_conv_relu_pool_kernel_carries_nan(cuda_device, dtype):
+    """NaN where the plain version has NaN (the pooled outputs whose conv
+    outputs read the NaN pixel: ReLU and the max carry it); every other
+    output as on the batch without the NaN."""
+    x, clean, wt, bias = _nan_batch((2, 20, 28, 64, 128), dtype, cuda_device, seed=5)
+    got = tconv.conv3x3_relu_maxpool(x, wt.to(dtype), bias)
+    before = tconv.conv3x3_relu_maxpool(clean, wt.to(dtype), bias)
+    want = tconv.conv3x3_relu_maxpool_reference(x, wt, bias)
+    torch.cuda.synchronize()
+    nan = torch.isnan(want)
+    assert nan[0, 2:4, 4:6].all() and int(nan.sum()) == 4 * 128
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got[~nan], before[~nan])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("pool", [True, False], ids=["pooled", "unpooled"])
+def test_q8_kernel_carries_nan(cuda_device, dtype, pool):
+    """The NaN makes image 0's scale NaN, so all its outputs are NaN, as
+    the plain version's are; image 1 stays bit for bit with the plain
+    version, its int32 sums included (image 0's sums are those of a NaN
+    quotient cast to int8, which the plain version leaves undefined)."""
+    x, _, wt, bias = _nan_batch((2, 28, 20, 64, 128), dtype, cuda_device, seed=6)
+    wq, sw = tconv.quantize_weight(wt)
+    wq = wq.contiguous()
+    if pool:
+        got, acc = tconv.conv3x3_relu_maxpool_q8(x, wq, sw, bias, return_acc=True)
+    else:
+        got, acc = tconv.conv3x3_q8(x, wq, sw, bias, return_acc=True)
+    want, want_acc = tconv.conv3x3_q8_reference(x, wq, sw, bias, pool=pool, return_acc=True)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(want[0]).all()) and bool(torch.isnan(got[0]).all())
+    assert torch.equal(got[1], want[1]) and torch.equal(acc[1], want_acc[1])
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)

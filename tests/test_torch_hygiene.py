@@ -150,7 +150,8 @@ def test_conv_probe_patches_lines_that_the_conv_source_has():
     finally:
         sys.path.remove(str(REPO))
     source = (PORT / "csrc" / "conv.cu").read_text()
-    assert set(conv_probe.VARIANTS) == {"as built", "no mma", "no staging", "no stores"}
+    assert set(conv_probe.VARIANTS) == {"as built", "no mma", "no staging", "no stores",
+                                        "16x16 tiles", "32x8 tiles", "4 stages"}
     for name, edits in conv_probe.VARIANTS.items():
         for old, _ in edits:
             assert old in source, f"{name}: {old!r}"

@@ -178,28 +178,68 @@ def test_ranking_tie_order_matches_jax():
     assert vals.size - np.unique(vals).size > 150  # the input does tie
 
 
+def _refine_args(jax_run):
+    """JAX's DoGs and ranked candidates of every octave as the arguments of
+    one refine call: the candidates octave after octave."""
+    ranked = [[torch.from_numpy(np.array(a)).to(torch.int32) for a in r[1:4]]
+              + [torch.from_numpy(np.array(r[4]))] for r in jax_run["ranked"]]
+    layer, r, c, valid = (torch.cat([rk[i] for rk in ranked]) for i in range(4))
+    counts = [rk[3].numel() for rk in ranked]
+    img = torch.zeros(sum(counts), dtype=torch.int32)
+    return [t_(d) for d in jax_run["dog"]], img, layer, r, c, valid, counts
+
+
 def test_refinement_matches_jax(jax_run):
-    """Fed JAX's DoG and candidates: the same kept candidates at the same
-    positions, offsets and contrast to 1e-5 (JAX sums the stencils in a
-    (27, 10) matmul, the port term by term)."""
-    kept = 0
-    for o in range(TCFG.n_octaves):
-        layer, r, c, valid = (torch.from_numpy(np.asarray(a)) for a in jax_run["ranked"][o][1:])
-        n = valid.numel()
-        got = K.refine_reference(
-            t_(jax_run["dog"][o]), torch.zeros(n, dtype=torch.int32), layer, r.to(torch.int32),
-            c.to(torch.int32), valid, **KW_REFINE)
-        want = {k: np.asarray(v)[0] for k, v in jax_run["detected"][o].items()}
-        ok = got.ok.numpy()
-        np.testing.assert_array_equal(ok, want["valid"])
-        for name, key in (("layer", "layer"), ("row", "r"), ("col", "c")):
-            np.testing.assert_array_equal(getattr(got, name).numpy()[ok], want[key][ok])
-        for name in ("xr", "xc", "xi"):
-            np.testing.assert_allclose(getattr(got, name).numpy()[ok], want[name][ok], atol=1e-5)
-        np.testing.assert_allclose(np.abs(got.contrast.numpy()[ok]), want["response"][ok],
-                                   atol=1e-6)
-        kept += int(ok.sum())
-    assert kept > 40
+    """Fed JAX's DoGs and candidates, every octave in one call: the same
+    kept candidates at the same positions, offsets and contrast to 1e-5
+    (JAX refines per octave and sums the stencils in a (27, 10) matmul,
+    the port term by term)."""
+    dogs, img, layer, r, c, valid, counts = _refine_args(jax_run)
+    got = K.refine_reference(dogs, img, layer, r, c, valid, counts=counts, **KW_REFINE)
+    want = {k: np.concatenate([np.asarray(d[k])[0] for d in jax_run["detected"]])
+            for k in ("valid", "layer", "r", "c", "xr", "xc", "xi", "response")}
+    ok = got.ok.numpy()
+    np.testing.assert_array_equal(ok, want["valid"])
+    for name, key in (("layer", "layer"), ("row", "r"), ("col", "c")):
+        np.testing.assert_array_equal(getattr(got, name).numpy()[ok], want[key][ok])
+    for name in ("xr", "xc", "xi"):
+        np.testing.assert_allclose(getattr(got, name).numpy()[ok], want[name][ok], atol=1e-5)
+    np.testing.assert_allclose(np.abs(got.contrast.numpy()[ok]), want["response"][ok], atol=1e-6)
+    assert len(counts) == TCFG.n_octaves and ok.sum() > 40
+
+
+def test_refinement_of_all_octaves_equals_one_octave_at_a_time(jax_run):
+    """One call over every octave gives, bit for bit, what one call per
+    octave gives, the fits included."""
+    dogs, img, layer, r, c, valid, counts = _refine_args(jax_run)
+    together, fits = K.refine_reference(dogs, img, layer, r, c, valid, counts=counts,
+                                        return_steps=True, **KW_REFINE)
+    start = 0
+    for dog, k in zip(dogs, counts):
+        part = slice(start, start + k)
+        alone, fits_alone = K.refine_reference(
+            [dog], img[part], layer[part], r[part], c[part], valid[part], counts=[k],
+            return_steps=True, **KW_REFINE)
+        assert all(torch.equal(a[part], b) for a, b in zip(together, alone))
+        assert torch.equal(fits[part], fits_alone)
+        start += k
+    assert start == together.ok.numel() and fits.sum() > 0
+
+
+def test_refine_refuses_what_the_kernel_does_not_take(jax_run):
+    """At most 16 octaves, counts that cover the candidates, one B."""
+    dogs, img, layer, r, c, valid, counts = _refine_args(jax_run)
+    args = (img, layer, r, c, valid)
+    with pytest.raises(ValueError, match="1 to 16"):
+        K.refine(dogs[:1] * 17, *args, counts=[0] * 16 + [img.numel()], **KW_REFINE)
+    with pytest.raises(ValueError, match="counts"):
+        K.refine(dogs, *args, counts=counts[:-1] + [counts[-1] + 1], **KW_REFINE)
+    with pytest.raises(ValueError, match="counts"):
+        K.refine(dogs, *args, counts=counts[:-1], **KW_REFINE)
+    with pytest.raises(ValueError, match="B of dogs"):
+        K.refine(dogs[:-1] + [dogs[-1].repeat(2, 1, 1, 1)], *args, counts=counts, **KW_REFINE)
+    with pytest.raises(TypeError):
+        K.refine(dogs[:-1] + [dogs[-1].double()], *args, counts=counts, **KW_REFINE)
 
 
 def _port_atlas(stacks):
