@@ -13,12 +13,20 @@ Phases, each of which raises on a failed check:
    with CUDA events beside its bound, with a device profile:
    a. VLAD aggregation at the main path's shape (128 sets of 196 x 514
       descriptors, K=256), on margin data: labels must agree exactly,
-      outputs to 1e-4 * max|ref| + 1e-5;
+      outputs to 1e-4 * max|ref| + 1e-5; then held to the same gates
+      (labels on the valid rows) and timed on the arguments a RootSIFT
+      VLAD encode of slice 3's 64 images gives it (64 sets of 2,048 x
+      128, about 361 valid rows a set);
    b. GMM statistics with the shipped GMM-k256 on 257-D descriptors drawn
       from it, in the Fisher-vector form (128 sets of 196, one fully
       masked, one fractional weight) and the EM form (one set of 25,088
-      rows, with the log-likelihood to rel 1e-5): s0/s1/s2 to
-      1e-4 * max|ref| + 1e-5;
+      rows, with the log-likelihood to rel 1e-5), and on the arguments a
+      RootSIFT FV encode of slice 3's 64 images gives it (64 sets of 2,048
+      x 64 after PCA-64, mostly masked rows; with a fully masked set, and
+      a NaN in one masked row, which must make its set's statistics NaN
+      where the plain version has it and leave the other sets as they
+      were): s0/s1/s2 to 1e-4 * max|ref| + 1e-5, each form's two calls
+      bit-equal, device time by pass;
    c. Lloyd statistics on one set of 25,088 x 514 margin rows, K=256:
       labels exact, counts equal, sums as above, inertia to rel 1e-5.
    d. The SIFT kernels (refinement, orientation, descriptor) on the
@@ -29,7 +37,8 @@ Phases, each of which raises on a failed check:
       refinement (one launch over the 7 octaves) ok flags and positions
       equal and offsets to 1e-5, angles to 1e-5 rad and second-peak flags
       equal, descriptors within 1 unit and exact on >= 99 % of entries;
-      each kernel's two calls bit-equal.
+      each kernel's two calls bit-equal. Kernels A and B are also timed on
+      the device alone (profiler), apart from their calls' host time.
    e. The fused conv kernels at the int8 trunk's shapes (VGG16, 224^2,
       bf16, B=128): kernel 7 at conv1 and conv3, kernel 8 pooled at conv6
       and conv9 and unpooled at conv4, 5, 7 and 8, each against its plain
@@ -336,9 +345,77 @@ def draw_from_gmm(gmm, rows: int, seed: int) -> torch.Tensor:
     return x.float().cuda()
 
 
-def phase_gmm_kernel(gs, gmm):
+def capture_calls(module, name: str, run) -> list:
+    """The arguments of every call ``run()`` makes to ``module.name``."""
+    calls = []
+    saved = getattr(module, name)
+
+    def wrapped(*args, **kwargs):
+        calls.append((args, kwargs))
+        return saved(*args, **kwargs)
+
+    setattr(module, name, wrapped)
+    try:
+        run()
+    finally:
+        setattr(module, name, saved)
+    return calls
+
+
+def rootsift_encode_calls():
+    """The arguments that the main path's RootSIFT encodes give kernels 1
+    and 2: one VLAD and one FV encode of slice 3's 64 images with the
+    shipped RootSIFT vocabularies, (64, 2048, 128) and (64, 2048, 64)
+    after PCA-64, about 361 valid rows a set."""
+    from pyvisim_tpu_torch.encoders import FisherVectorEncoder, GMMWeights, KMeansWeights
+    from pyvisim_tpu_torch.encoders import VLADEncoder
+    from pyvisim_tpu_torch.ops import fisher as fisher_ops
+    from pyvisim_tpu_torch.ops import vlad as vlad_ops
+
+    images = list(sift_gray_batch(SIFT_IMAGES, seed=0)[0])
+    vlad = VLADEncoder(weights=KMeansWeights.OXFORD102_K256_ROOTSIFT)
+    fv = FisherVectorEncoder(vlad.feature_extractor,
+                             weights=GMMWeights.OXFORD102_K256_ROOTSIFT_PCA)
+    vlad_calls = capture_calls(vlad_ops, "vlad_aggregate_batched", lambda: vlad.encode(images))
+    gmm_calls = capture_calls(fisher_ops, "gmm_stats_batched", lambda: fv.encode(images))
+    check(len(vlad_calls) == 1 and len(gmm_calls) == 1,
+          f"RootSIFT encodes made {len(vlad_calls)} VLAD and {len(gmm_calls)} GMM calls")
+    return vlad_calls[0], gmm_calls[0]
+
+
+def check_vlad_rootsift(agg, call) -> dict:
+    """Kernel 1 at the RootSIFT VLAD encode's shape, held against its plain
+    version there as phase 2a holds it (every valid row's label equal, the
+    sums within 1e-4 * max|ref| + 1e-5), and timed for the table beside
+    the plain version, with its bound on the valid rows."""
+    (desc, mask, centers), _ = call
+    out, labels = agg.vlad_aggregate_batched(desc, mask, centers, return_labels=True)
+    ref, ref_labels = agg.vlad_aggregate_reference(desc, mask, centers, return_labels=True)
+    torch.cuda.synchronize()
+    valid = mask != 0
+    mismatches = int((labels != ref_labels)[valid].sum())
+    check(mismatches == 0, f"vlad rootsift form: {mismatches} valid-row labels differ from the "
+          "plain argmin")
+    err = max_err(out, ref, "vlad rootsift form sums")
+    ms = cuda_ms(lambda: agg.vlad_aggregate_batched(desc, mask, centers))
+    plain_ms = cuda_ms(lambda: agg.vlad_aggregate_reference(desc, mask, centers))
+    b_, n_, d_ = desc.shape
+    k_ = centers.shape[0]
+    n_valid = int(valid.sum())
+    b = bound(2 * n_valid * k_ * d_ + 2 * n_valid * d_ + 2 * b_ * k_ * d_,
+              4 * (b_ * n_ * d_ + b_ * n_ + k_ * d_ + b_ * k_ * d_))
+    log(f"vlad rootsift form ({b_} x {n_} x {d_}, K={k_}, {n_valid} valid rows): "
+        f"{mismatches} valid-row labels differ, max|diff| {err:.3e}; kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b})")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+            "max_abs_err": err, "label_mismatches": mismatches,
+            "shape": f"rootsift B={b_} N={n_} D={d_} K={k_}, {n_valid} valid rows"}
+
+
+def phase_gmm_kernel(gs, gmm, rootsift_call):
     """The GMM statistics kernel against its plain version, in the Fisher
-    form (a batch of sets) and the EM form (one large set)."""
+    form (a batch of sets), the EM form (one large set) and the RootSIFT
+    FV encode's form (``rootsift_call``: mostly masked sets)."""
     from pyvisim_tpu_torch.ops import gmm_posteriors
 
     params = (gmm.weights.contiguous(), gmm.means.contiguous(), gmm.covariances.contiguous())
@@ -385,6 +462,8 @@ def phase_gmm_kernel(gs, gmm):
         f"{em_bound['bound_ms']:.4f} ms ({em_bound})")
     log(json.dumps({"kernel_profile_gmm_em": profile_device_graph(
         lambda: gs.gmm_stats_batched(x, m, *params, with_ll=True), reps=10, top=8)}))
+    rootsift = check_gmm_rootsift(gs, rootsift_call)
+    errs.append(rootsift.pop("max_abs_err"))
     return {
         "name": "gmm_stats",
         "route": "cuda",
@@ -404,7 +483,51 @@ def phase_gmm_kernel(gs, gmm):
         "em_bound_ms": em_bound["bound_ms"],
         "em_shape": f"em N={N_TRAIN} D={d} K={k}",
         "em_ll_rel_err": rel_ll,
+        "rootsift_fv": rootsift,
     }
+
+
+def check_gmm_rootsift(gs, call) -> dict:
+    """The RootSIFT FV encode's call: sums as the other forms, two calls
+    bit-equal, a fully masked set zero, and a NaN in one masked row NaN on
+    its set's statistics where the plain version has it, the other sets
+    unchanged. Its bound counts the valid rows' products."""
+    (desc, mask, *params), kw = call
+    got = gs.gmm_stats_batched(desc, mask, *params, **kw)
+    again = gs.gmm_stats_batched(desc, mask, *params, **kw)
+    want = gs.gmm_stats_reference(desc, mask, *params, **kw)
+    torch.cuda.synchronize()
+    check(same_bits(got, again), "GMM kernel does not repeat bit for bit (RootSIFT form)")
+    err = max(max_err(a, b, f"rootsift fv {name}") for name, a, b in zip(("s0", "s1", "s2"), got, want))
+    masked = mask.clone()
+    masked[1] = 0.0
+    zero = gs.gmm_stats_batched(desc, masked, *params, **kw)
+    check(not any(float(t[1].abs().max()) for t in zero), "fully masked RootSIFT set has statistics")
+    row = int((mask[0] == 0).nonzero()[0, 0])
+    poisoned = desc.clone()
+    poisoned[0, row, 3] = float("nan")
+    got_nan = gs.gmm_stats_batched(poisoned, mask, *params, **kw)
+    want_nan = gs.gmm_stats_reference(poisoned, mask, *params, **kw)
+    torch.cuda.synchronize()
+    for a, b, clean in zip(got_nan, want_nan, got):
+        check(torch.equal(a.isnan(), b.isnan()), "NaN pattern differs from the plain version")
+        check(bool(a[0].isnan().all()), "a NaN in a masked row did not reach its set's statistics")
+        check(torch.equal(a[1:], clean[1:]), "a NaN in one set moved another set's statistics")
+    ms = cuda_ms(lambda: gs.gmm_stats_batched(desc, mask, *params, **kw))
+    plain_ms = cuda_ms(lambda: gs.gmm_stats_reference(desc, mask, *params, **kw))
+    b_, n_, d_ = desc.shape
+    k_ = params[1].shape[0]
+    n_valid = int((mask != 0).sum())
+    b = bound(8 * n_valid * k_ * d_, 4 * (b_ * n_ * d_ + b_ * n_ + 3 * k_ * d_ + k_ + b_ * k_
+                                          + 2 * b_ * k_ * d_))
+    log(f"gmm rootsift fv form ({b_} x {n_} x {d_}, K={k_}, {n_valid} valid rows): kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b})")
+    prof = profile_device_graph(lambda: gs.gmm_stats_batched(desc, mask, *params, **kw),
+                                reps=10, top=8)
+    log(json.dumps({"kernel_profile_gmm_rootsift": prof}))
+    return {"ms": ms, "device_ms": prof["kernel_ms_per_call"], "plain_ms": plain_ms,
+            "bound_ms": b["bound_ms"], "bound_by": b["bound_by"], "max_abs_err": err,
+            "shape": f"rootsift fv B={b_} N={n_} D={d_} K={k_}, {n_valid} valid rows"}
 
 
 def phase_lloyd_kernel(ls):
@@ -980,21 +1103,25 @@ def check_orientation(kernels, calls, load: str) -> dict:
     check(err <= 1e-5, f"orientation off by {err} rad")
     ms = time_calls(kernels.orientation, calls)
     plain_ms = time_calls(kernels.orientation_reference, calls, reps=1, rounds=3, warmup=1)
+    # The launch's own device time, apart from the host time of the call.
+    device_ms = profile_device_graph(lambda: time_calls(kernels.orientation, calls, reps=1,
+                                                        rounds=1, warmup=0),
+                                     reps=10, top=2)["kernel_ms_per_call"]
     n = valid.numel()
     pix = window_pixels(kw, torch.round(4.5 * kw["scl"]))
     atlas_bytes = kw["atlas"].element_size() * 2
     b = bound(10 * pix, atlas_bytes * pix + 29 * n + 9 * n)
     log(f"sift orientation ({load}): {int(valid.sum())} valid of {n}, {int(got[2].sum())} second peaks, "
-        f"{pix} window pixels; max|diff| {err:.3e} rad; kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b})")
+        f"{pix} window pixels; max|diff| {err:.3e} rad; kernel {ms:.4f} ms (device "
+        f"{device_ms:.4f}), plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b})")
     return {
         "name": "sift_orientation", "route": "cuda",
         "source": "pyvisim_tpu_torch/csrc/sift_window.cu",
         "replaces": "pyvisim_tpu/ops/pallas/sift_window.py:775",
         "replaces_function": "_ori_kernel (orientation_window_pass)",
-        "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": b["bound_ms"], "bound_by": b["bound_by"], "library_ms": None,
-        "launches_per_16_image_call": len(calls),
+        "launches": None, "max_abs_err": err, "ms": ms, "device_ms": device_ms,
+        "plain_ms": plain_ms, "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+        "library_ms": None, "launches_per_16_image_call": len(calls),
         "shape": f"{n} keypoints, {int(valid.sum())} valid, {pix} window pixels",
     }
 
@@ -1517,7 +1644,10 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_environment(_build)
     kernel = phase_kernel(agg)
-    gmm_kernel = phase_gmm_kernel(gs, shipped_gmm())
+    vlad_rootsift_call, gmm_rootsift_call = rootsift_encode_calls()
+    kernel["rootsift_vlad"] = check_vlad_rootsift(agg, vlad_rootsift_call)
+    gmm_kernel = phase_gmm_kernel(gs, shipped_gmm(), gmm_rootsift_call)
+    del vlad_rootsift_call, gmm_rootsift_call
     lloyd_kernel = phase_lloyd_kernel(ls)
     sift_kernels = phase_sift_kernels(sw)
     conv_kernels = phase_conv_kernels(conv)

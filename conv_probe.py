@@ -29,7 +29,6 @@ checkout:
 """
 from __future__ import annotations
 
-import ctypes
 import subprocess
 import sys
 
@@ -37,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 import chip_smoke
+from kernel_probe import build_variants
 from pyvisim_tpu_torch.ops.cuda import _build, conv
 
 VARIANTS = {
@@ -59,34 +59,6 @@ VARIANTS = {
 }
 SHAPES = [("conv1", 224, 64, 64, "k7"), ("conv3", 112, 128, 128, "k7"),
           ("conv5", 56, 256, 256, "k8"), ("conv9", 28, 512, 512, "k8p")]
-
-
-def build_variants() -> dict[str, ctypes.CDLL]:
-    """Each variant's library, all compiled at once into the build directory."""
-    source = (_build.CSRC / "conv.cu").read_text()
-    out_dir = _build.BUILD_DIR / "conv_probe"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, edits in VARIANTS.items():
-        text = source
-        for old, new in edits:
-            if old not in text:
-                raise RuntimeError(f"variant {name!r}: {old!r} is not in conv.cu")
-            text = text.replace(old, new)
-        stem = name.replace(" ", "_")
-        src = out_dir / f"{stem}.cu"
-        src.write_text(text)
-        lib = out_dir / f"lib{stem}.so"
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                        text=True), lib)
-    libs = {}
-    for name, (proc, lib) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed on variant {name!r}:\n{log}")
-        libs[name] = ctypes.CDLL(str(lib))
-    return libs
 
 
 def bf16_accuracy() -> None:
@@ -121,7 +93,7 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi)
-    libs = build_variants()
+    libs = build_variants("conv", VARIANTS)
     b = chip_smoke.B
     for layer, hw, cin, cout, route in SHAPES:
         g = torch.Generator(device="cuda").manual_seed(0)

@@ -223,6 +223,10 @@ struct AtlasType<__nv_bfloat16> {
   static __device__ __forceinline__ float load(const __nv_bfloat16* p) {
     return __bfloat162float(*p);
   }
+  // A pixel's (magnitude, angle), in one 4-byte read.
+  static __device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  }
   // The reference contracts its histogram weights in the atlas' type.
   static __device__ __forceinline__ float round(float x) {
     return __bfloat162float(__float2bfloat16_rn(x));
@@ -232,6 +236,9 @@ struct AtlasType<__nv_bfloat16> {
 template <>
 struct AtlasType<float> {
   static __device__ __forceinline__ float load(const float* p) { return *p; }
+  static __device__ __forceinline__ float2 load_pair(const float* p) {
+    return *reinterpret_cast<const float2*>(p);
+  }
   static __device__ __forceinline__ float round(float x) { return x; }
 };
 
@@ -258,9 +265,10 @@ __device__ __forceinline__ Keypoint locate(const long long* octaves, int n_octav
   return k;
 }
 
-constexpr int kTile = 1024;  // window pixels staged in shared memory at a time
 constexpr int kOriBins = 36;
-constexpr int kOriThreads = 128;
+constexpr int kOriWarps = 4;      // keypoints (warps) per block
+constexpr int kOriChunks = 8;     // 32-pixel chunks of a warp's tile of the window
+constexpr int kOriWarpWords = kOriChunks * 32 + kOriChunks * kOriBins + kOriBins;
 
 struct WindowParams {
   int n;                  // keypoints
@@ -270,16 +278,66 @@ struct WindowParams {
 };
 
 // ---------------------------------------------------------------------------
-// Kernel B: orientation. One block per keypoint. Window |ii|, |jj| <=
-// min(class radius, round(4.5 scl)); each in-image pixel adds
-// exp(-(ii^2+jj^2) / (2 (1.5 scl)^2)) * mag to bin round(ang * 36/2pi) mod 36.
-// Thread k < 36 owns bin k and walks the window row by row, so each bin
-// is a sum in a fixed order. Then thread 0 smooths with [1,4,6,4,1]/16,
-// takes the first maximum, its parabolic angle, and the strongest other
-// local peak >= 0.8 max.
+// Kernel B: orientation. One warp per keypoint slot, kOriWarps slots per
+// block: an invalid slot costs one flag read and three stores. Window
+// |ii|, |jj| <= min(class radius, round(4.5 scl)); each in-image pixel adds
+// exp(-(ii^2+jj^2) / (2 (1.5 scl)^2)) * mag to bin round(ang * 36/2pi)
+// mod 36, and each bin's sum runs over its pixels in row-major window
+// order, as the plain version's does.
+//
+// The warp takes the window 256 pixels at a time, 8 a lane. Each lane
+// computes its pixels' terms and sets its lane bit in a shared word per
+// (32-pixel chunk, bin); then the lane that owns a bin (lane l owns bins l
+// and l + 32) walks the set bits of its bin's words, chunk by chunk and
+// lane by lane, which is window order, and adds those terms onto its
+// running sum. So a bin's work is its own pixel count, not the window's
+// size, only the owners' adds run in series, and the sums are the plain
+// version's, bit for bit. Then each lane smooths its bins
+// with [1,4,6,4,1]/16, and two warp reductions find the first maximum (the
+// lowest bin on ties) and the strongest other local peak >= 0.8 max (again
+// the lowest bin on ties); lane 0 interpolates both angles.
 // ---------------------------------------------------------------------------
+struct Peak {
+  float v;
+  int bin;  // -1: no candidate
+};
+
+// The better of two candidates: a present one, the larger value, the lower
+// bin on ties; as the first-maximum loops over bins 0..35 choose.
+__device__ __forceinline__ Peak better(Peak a, Peak b) {
+  if (b.bin < 0) return a;
+  if (a.bin < 0) return b;
+  if (b.v > a.v || (b.v == a.v && b.bin < a.bin)) return b;
+  return a;
+}
+
+__device__ __forceinline__ Peak warp_best(Peak x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    Peak o;
+    o.v = __shfl_xor_sync(0xffffffffu, x.v, off);
+    o.bin = __shfl_xor_sync(0xffffffffu, x.bin, off);
+    x = better(x, o);
+  }
+  return x;
+}
+
+__device__ __forceinline__ float smooth_bin(const float* h, int b) {
+  const float far = h[(b + kOriBins - 2) % kOriBins] + h[(b + 2) % kOriBins];
+  const float near = h[(b + kOriBins - 1) % kOriBins] + h[(b + 1) % kOriBins];
+  return far * 0.0625f + near * 0.25f + h[b] * 0.375f;
+}
+
+__device__ __forceinline__ float peak_angle(const float* hs, int pk) {
+  const float l_ = hs[(pk + kOriBins - 1) % kOriBins], c_ = hs[pk],
+              r_ = hs[(pk + 1) % kOriBins];
+  const float denom = l_ - 2.0f * c_ + r_;
+  const float interp = fabsf(denom) > 1e-12f ? 0.5f * (l_ - r_) / denom : 0.0f;
+  return (static_cast<float>(pk) + interp) * 0.17453292519943295f;
+}
+
 template <typename T>
-__global__ void __launch_bounds__(kOriThreads)
+__global__ void __launch_bounds__(kOriWarps * 32)
     orientation_kernel(const T* __restrict__ atlas, const long long* __restrict__ octaves,
                        const int* __restrict__ img, const int* __restrict__ octave,
                        const int* __restrict__ layer, const int* __restrict__ row,
@@ -287,89 +345,113 @@ __global__ void __launch_bounds__(kOriThreads)
                        const int* __restrict__ radius, const unsigned char* __restrict__ valid,
                        float* __restrict__ theta, float* __restrict__ theta2,
                        unsigned char* __restrict__ has_second, WindowParams p) {
-  __shared__ float s_wm[kTile];
-  __shared__ unsigned char s_bin[kTile];
-  __shared__ float s_hist[kOriBins];
-  const int k = blockIdx.x;
-  const int t = threadIdx.x;
+  // Per warp: the tile's terms, per chunk and bin the lanes whose pixel
+  // falls into the bin, and the histogram.
+  __shared__ unsigned ori_smem[kOriWarps * kOriWarpWords];
+  const int lane = threadIdx.x & 31;
+  const int wid = threadIdx.x >> 5;
+  const int k = blockIdx.x * kOriWarps + wid;
+  if (k >= p.n) return;
+  unsigned* own = ori_smem + wid * kOriWarpWords;
+  float* wm_of = reinterpret_cast<float*>(own);
+  unsigned (*lanes_of)[kOriBins] = reinterpret_cast<unsigned (*)[kOriBins]>(own + kOriChunks * 32);
+  float* hist = reinterpret_cast<float*>(own + kOriChunks * 32 + kOriChunks * kOriBins);
   if (!valid[k]) {
-    if (t == 0) {
+    if (lane == 0) {
       theta[k] = 0.0f;
       theta2[k] = 0.0f;
       has_second[k] = 0;
     }
     return;
   }
-  const Keypoint kp = locate(octaves, p.n_octaves, p.atlas_numel, p.n_layers, img[k], octave[k],
-                                layer[k], row[k], col[k]);
+  const Keypoint kp = locate(octaves, p.n_octaves, p.atlas_numel, p.n_layers, img[k],
+                             octave[k], layer[k], row[k], col[k]);
   const float sc = scl[k];
   const int rad = min(radius[k], static_cast<int>(rintf(4.5f * sc)));
   const float sigma_w = 1.5f * sc;
   const float exp_scale = -1.0f / (2.0f * sigma_w * sigma_w);
   const int side = 2 * rad + 1;
   const int n_pix = side * side;
+  const float inv_side = 1.0f / static_cast<float>(side);
   const T* plane = atlas + kp.plane;
-  float acc = 0.0f;
-  for (int base = 0; base < n_pix; base += kTile) {
-    const int count = min(kTile, n_pix - base);
-    for (int q = t; q < count; q += kOriThreads) {
-      const int pix = base + q;
-      const int ii = pix / side - rad, jj = pix % side - rad;
+  // A pixel's pair is one aligned read unless the plane starts at an odd
+  // element (an atlas laid out by another caller).
+  const bool paired = (reinterpret_cast<uintptr_t>(plane) & (2 * sizeof(T) - 1)) == 0;
+  float acc_lo = 0.0f, acc_hi = 0.0f;  // bins lane and lane + 32
+  for (int base = 0; base < n_pix; base += 32 * kOriChunks) {
+    const int n_chunks = min(kOriChunks, (n_pix - base + 31) / 32);
+    for (int i = lane; i < n_chunks * kOriBins; i += 32) (&lanes_of[0][0])[i] = 0u;
+    __syncwarp();
+    // Every pixel of the tile: its term, and its lane bit under its bin.
+    for (int u = 0; u < n_chunks; ++u) {
+      const int pix = base + u * 32 + lane;
+      // pix / side, exact: (pix + 0.5) / side lies >= 0.5 / side from an
+      // integer, far beyond the product's rounding error.
+      const int row_in = __float2int_rz((static_cast<float>(pix) + 0.5f) * inv_side);
+      const int ii = row_in - rad, jj = pix - row_in * side - rad;
       const int rr = kp.r + ii, cc = kp.c + jj;
       float wm = 0.0f;
-      int bin = 0;
-      if (rr >= 1 && rr < kp.h - 1 && cc >= 1 && cc < kp.w - 1) {
+      if (pix < n_pix && rr >= 1 && rr < kp.h - 1 && cc >= 1 && cc < kp.w - 1) {
         const long long at = (static_cast<long long>(rr) * kp.w + cc) * 2;
-        const float mag = AtlasType<T>::load(plane + at);
-        const float ang = AtlasType<T>::load(plane + at + 1);
+        float mag, ang;
+        if (paired) {
+          const float2 ma = AtlasType<T>::load_pair(plane + at);
+          mag = ma.x;
+          ang = ma.y;
+        } else {
+          mag = AtlasType<T>::load(plane + at);
+          ang = AtlasType<T>::load(plane + at + 1);
+        }
         const float fi = static_cast<float>(ii), fj = static_cast<float>(jj);
         wm = expf((fi * fi + fj * fj) * exp_scale) * mag;
-        bin = static_cast<int>(rintf(ang * 5.729577951308232f)) % kOriBins;
+        int bin = static_cast<int>(rintf(ang * 5.729577951308232f)) % kOriBins;
         if (bin < 0) bin += kOriBins;  // floor-mod, as the reference's % is
+        atomicOr(&lanes_of[u][bin], 1u << lane);
       }
-      s_wm[q] = wm;
-      s_bin[q] = static_cast<unsigned char>(bin);
+      wm_of[u * 32 + lane] = wm;
     }
-    __syncthreads();
-    if (t < kOriBins)
-      for (int q = 0; q < count; ++q)
-        if (s_bin[q] == t) acc += s_wm[q];
-    __syncthreads();
+    __syncwarp();
+    // Each owner adds its bin's terms in window order: chunk by chunk,
+    // lane by lane.
+    for (int u = 0; u < n_chunks; ++u)
+      for (unsigned m = lanes_of[u][lane]; m; m &= m - 1)
+        acc_lo += wm_of[u * 32 + __ffs(m) - 1];
+    if (lane < kOriBins - 32)
+      for (int u = 0; u < n_chunks; ++u)
+        for (unsigned m = lanes_of[u][lane + 32]; m; m &= m - 1)
+          acc_hi += wm_of[u * 32 + __ffs(m) - 1];
+    __syncwarp();
   }
-  if (t < kOriBins) s_hist[t] = acc;
-  __syncthreads();
-  if (t != 0) return;
+  hist[lane] = acc_lo;
+  if (lane < kOriBins - 32) hist[lane + 32] = acc_hi;
+  __syncwarp();
+  const float hs_lo = smooth_bin(hist, lane);
+  const float hs_hi = lane < kOriBins - 32 ? smooth_bin(hist, lane + 32) : 0.0f;
+  __syncwarp();
+  hist[lane] = hs_lo;  // from here on, the smoothed histogram
+  if (lane < kOriBins - 32) hist[lane + 32] = hs_hi;
+  __syncwarp();
 
-  float hs[kOriBins];
-  for (int b = 0; b < kOriBins; ++b) {
-    const float far = s_hist[(b + kOriBins - 2) % kOriBins] + s_hist[(b + 2) % kOriBins];
-    const float near = s_hist[(b + kOriBins - 1) % kOriBins] + s_hist[(b + 1) % kOriBins];
-    hs[b] = far * 0.0625f + near * 0.25f + s_hist[b] * 0.375f;
-  }
-  int peak = 0;
-  for (int b = 1; b < kOriBins; ++b)
-    if (hs[b] > hs[peak]) peak = b;
-  const float omax = hs[peak];
-  int second = -1;
-  for (int b = 0; b < kOriBins; ++b) {
-    const float left = hs[(b + kOriBins - 1) % kOriBins], right = hs[(b + 1) % kOriBins];
-    const bool is_peak = hs[b] > left && hs[b] >= right && hs[b] >= 0.8f * omax && b != peak;
-    if (is_peak && (second < 0 || hs[b] > hs[second])) second = b;
-  }
-  float angles[2] = {0.0f, 0.0f};
-  const int peaks[2] = {peak, second};
+  Peak top{hs_lo, lane};
+  if (lane < kOriBins - 32) top = better(top, Peak{hs_hi, lane + 32});
+  top = warp_best(top);
+  const float min_second = 0.8f * top.v;
+  Peak second{0.0f, -1};
+#pragma unroll
   for (int j = 0; j < 2; ++j) {
-    const int pk = peaks[j];
-    if (pk < 0) continue;
-    const float l_ = hs[(pk + kOriBins - 1) % kOriBins], c_ = hs[pk],
-                r_ = hs[(pk + 1) % kOriBins];
-    const float denom = l_ - 2.0f * c_ + r_;
-    const float interp = fabsf(denom) > 1e-12f ? 0.5f * (l_ - r_) / denom : 0.0f;
-    angles[j] = (static_cast<float>(pk) + interp) * 0.17453292519943295f;
+    const int b = lane + 32 * j;
+    if (b >= kOriBins) continue;
+    const float v = hist[b];
+    const float left = hist[(b + kOriBins - 1) % kOriBins], right = hist[(b + 1) % kOriBins];
+    if (v > left && v >= right && v >= min_second && b != top.bin)
+      second = better(second, Peak{v, b});
   }
-  theta[k] = angles[0];
-  theta2[k] = angles[1];
-  has_second[k] = second >= 0 ? 1 : 0;
+  second = warp_best(second);
+  if (lane == 0) {
+    theta[k] = peak_angle(hist, top.bin);
+    theta2[k] = second.bin >= 0 ? peak_angle(hist, second.bin) : 0.0f;
+    has_second[k] = second.bin >= 0 ? 1 : 0;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -508,8 +590,9 @@ cudaError_t launch_orientation(const void* atlas, const long long* octaves, cons
                                const int* octave, const int* layer, const int* row,
                                const int* col, const float* scl, const int* radius,
                                const unsigned char* valid, float* theta, float* theta2,
-                               unsigned char* has_second, WindowParams p, cudaStream_t stream) {
-  orientation_kernel<T><<<p.n, kOriThreads, 0, stream>>>(
+                               unsigned char* has_second, WindowParams p,
+                               cudaStream_t stream) {
+  orientation_kernel<T><<<(p.n + kOriWarps - 1) / kOriWarps, kOriWarps * 32, 0, stream>>>(
       static_cast<const T*>(atlas), octaves, img, octave, layer, row, col, scl, radius, valid,
       theta, theta2, has_second, p);
   return cudaGetLastError();

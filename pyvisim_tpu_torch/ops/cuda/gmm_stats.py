@@ -8,23 +8,25 @@ The kernel (``csrc/gmm_stats.cu``) replaces the TPU kernel
 so a Fisher-vector encode of a batch and an EM step on one large set are
 each a single call.
 
-Bound: the four products are ``8*B*N*K*D`` flops in full f32 (13.2 GFLOP
-at B=128, N=196, D=257, K=256, ~0.2 ms on the card's f32 CUDA cores)
-against ~93 MB in and out, so the f32 rate bounds it. The EM step needs
-full f32 (JAX pins ``Precision.HIGHEST``), so the kernel multiplies in f32
-FMAs, not TF32. The ``(B*N, K)`` posterior block goes through device
-memory between its passes; see the source.
+Bound: the products are ``8*B*N*K*D`` flops in full f32 on the rows that
+carry weight (13.2 GFLOP at B=128, N=196, D=257, K=256, ~0.2 ms on the
+card's f32 CUDA cores) against ~93 MB in and out, so the f32 rate bounds
+it. The EM step needs full f32 (JAX pins ``Precision.HIGHEST``), so the
+kernel multiplies in f32 FMAs, not TF32. Its passes are GEMM-shaped: logp
+as ``[x, x^2]`` against ``[minv | -half_inv]`` with the softmax on chip for
+K <= 256, then ``[s1 | s2]`` as ``q^T [x, x^2]``; blocks of rows that all
+weigh 0 skip their products when they provably add nothing (see the
+source).
 """
 from __future__ import annotations
 
 import ctypes
-import math
 
 import torch
 
 from ..assign import gmm_terms
 from ._build import load_library
-from .aggregate import check_kernel_inputs, launch_target, segment_rows
+from .aggregate import check_kernel_inputs, launch_target
 
 __all__ = ["gmm_stats_reference", "gmm_stats_batched"]
 
@@ -69,8 +71,10 @@ def _library() -> ctypes.CDLL:
     lib = load_library("gmm_stats")
     if not getattr(lib, "_pyvisim_typed", False):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.gmm_stats_f32.argtypes = [ptr] * 12 + [i32] * 6 + [ptr]
+        lib.gmm_stats_f32.argtypes = [ptr] * 10 + [i32] * 5 + [ptr]
         lib.gmm_stats_f32.restype = i32
+        lib.gmm_stats_scratch_floats.argtypes = [i32] * 4
+        lib.gmm_stats_scratch_floats.restype = ctypes.c_longlong
         lib.gmm_error_string.argtypes = [i32]
         lib.gmm_error_string.restype = ctypes.c_char_p
         lib._pyvisim_typed = True
@@ -105,19 +109,13 @@ def gmm_stats_batched(
     out = (s0, s1, s2, ll) if with_ll else (s0, s1, s2)
     if b * n == 0:
         return tuple(t.zero_() for t in out)
-    minv, half_inv, const = (t.contiguous() for t in gmm_terms(weights, means, covariances))
-    seg = segment_rows(n)
-    n_seg = math.ceil(n / seg)
-    q = torch.empty((b * n * k,), dtype=torch.float32, device=dev)
-    lse = torch.empty((b * n,), dtype=torch.float32, device=dev)
-    part = (torch.empty((b * n_seg * (k + 2 * k * d),), dtype=torch.float32, device=dev)
-            if n_seg > 1 else None)
     lib = _library()
+    scratch = torch.empty((lib.gmm_stats_scratch_floats(b, n, d, k),), dtype=torch.float32,
+                          device=dev)
     err = lib.gmm_stats_f32(
-        desc.data_ptr(), mask.data_ptr(), minv.data_ptr(), half_inv.data_ptr(),
-        const.data_ptr(), q.data_ptr(), lse.data_ptr(), None if part is None else part.data_ptr(),
-        s0.data_ptr(), s1.data_ptr(), s2.data_ptr(), ll.data_ptr() if with_ll else None,
-        b, n, d, k, seg, *launch_target(dev),
+        desc.data_ptr(), mask.data_ptr(), weights.data_ptr(), means.data_ptr(),
+        covariances.data_ptr(), scratch.data_ptr(), s0.data_ptr(), s1.data_ptr(), s2.data_ptr(),
+        ll.data_ptr() if with_ll else None, b, n, d, k, *launch_target(dev),
     )
     if err != 0:
         raise RuntimeError(

@@ -433,7 +433,7 @@ def orientation(atlas, octaves, img, octave, layer, row, col, scl, radius, valid
     The window is ``|ii|, |jj| <= min(radius, round(4.5 * scl))``, where
     ``radius`` is the keypoint's radius class. CPU tensors take
     :func:`orientation_reference`; CUDA tensors launch the kernel, one
-    block per keypoint.
+    warp per keypoint.
     """
     n = _check_window(atlas, octaves, img=img, octave=octave, layer=layer, row=row, col=col,
                       scl=scl, radius=radius, valid=valid)

@@ -168,6 +168,63 @@ def test_gmm_stats_kernel_empty_sets_and_refusals(cuda_device):
         tgs.gmm_stats_batched(desc, mask, w, mu[:, :8].contiguous(), cov)
 
 
+def _rootsift_like(b, n, d, k, n_valid, seed=0):
+    """Sets whose first ``n_valid`` rows carry weight and the rest are
+    masked, as a RootSIFT encode sends them (rows sorted valid first)."""
+    desc, mask, w, mu, cov = _gmm_batch(b, n, d, k, seed=seed)
+    mask = torch.zeros_like(mask)
+    mask[:, :n_valid] = 1.0
+    mask[0, 5] = 0.37
+    return desc, mask, w, mu, cov
+
+
+# (B, N, D, K, valid rows a set): the RootSIFT FV encode's shape with
+# about 361 valid rows a set, and a K above the fused-softmax limit, on the
+# encode and on the EM form.
+MASKED_SHAPES = [
+    (64, 2048, 64, 256, 361), (4, 700, 24, 300, 150), (1, 3000, 40, 300, 1000),
+    (3, 500, 257, 256, 70),
+]
+
+
+@pytest.mark.parametrize("shape", MASKED_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_gmm_stats_kernel_on_mostly_masked_sets(cuda_device, shape):
+    args = [t.to(cuda_device) for t in _rootsift_like(*shape)]
+    before = tgs.gmm_stats_batched.launches
+    got = tgs.gmm_stats_batched(*args, with_ll=True)
+    want = tgs.gmm_stats_reference(*args, with_ll=True)
+    torch.cuda.synchronize()
+    assert tgs.gmm_stats_batched.launches == before + 1
+    for name, a, b in zip(("s0", "s1", "s2"), got, want):
+        _close(a, b, name)
+    torch.testing.assert_close(got[3], want[3], rtol=1e-5, atol=1e-3)
+    again = tgs.gmm_stats_batched(*args, with_ll=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("k", [256, 300])
+@pytest.mark.parametrize("poison", ["nan", "inf", "overflow"])
+def test_gmm_stats_kernel_carries_a_masked_rows_nan(cuda_device, k, poison):
+    """A NaN, an inf, or a finite value whose square overflows logp, in a
+    masked row among masked rows: NaN on that set's statistics exactly
+    where the plain version has it, the other sets unchanged; a set of
+    masked finite rows gives zeros."""
+    desc, mask, w, mu, cov = (t.to(cuda_device) for t in _rootsift_like(3, 600, 32, k, 100))
+    cov = 0.01 * cov  # so that 5e18 squared, finite, overflows logp on every component
+    clean = tgs.gmm_stats_batched(desc, mask, w, mu, cov, with_ll=True)
+    value = {"nan": float("nan"), "inf": float("inf"), "overflow": 5e18}[poison]
+    desc[0, 400, 7] = value
+    mask[2] = 0.0
+    got = tgs.gmm_stats_batched(desc, mask, w, mu, cov, with_ll=True)
+    want = tgs.gmm_stats_reference(desc, mask, w, mu, cov, with_ll=True)
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, want, clean):
+        assert torch.equal(a.isnan(), b.isnan())
+        assert a[0].isnan().all()
+        assert torch.equal(a[1], c[1])
+        assert not a[2].any()
+
+
 # (N, D, K): the training widths, ragged tiles, several row segments,
 # K = 1, one row, and enough centers for 64- and 32-column slices.
 LLOYD_SHAPES = [
@@ -385,6 +442,46 @@ def test_orientation_kernel_matches_plain_version(cuda_device, atlases, dtype, n
     if n == 700:
         assert set(kw["radius"].tolist()) == set(SIFT_CFG.ori_radius_classes)
         assert got[2].any()
+
+
+def _check_orientation_kernel(kw):
+    before = tsw.orientation.launches
+    got = tsw.orientation(**kw, n_layers=3)
+    again = tsw.orientation(**kw, n_layers=3)
+    want = tsw.orientation_reference(**kw, n_layers=3)
+    torch.cuda.synchronize()
+    assert tsw.orientation.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert not got[0][~kw["valid"]].any()
+    return got
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_orientation_kernel_on_one_bin_windows(cuda_device, atlases, dtype):
+    """Every pixel of every window falls into one bin (a constant angle),
+    so one lane adds the whole window: still bit for bit."""
+    atlas, octaves = atlases[dtype]
+    atlas = atlas.clone()
+    atlas.view(-1, 2)[:, 1] = 0.35  # bin 2
+    kw, _ = _keypoints(atlas, octaves, 96, seed=3)
+    kw["radius"] = tsift._radius_class(kw["scl"], 4.5, SIFT_CFG.ori_radius_classes)
+    got = _check_orientation_kernel(_on(cuda_device, kw))
+    valid = kw["valid"].to(cuda_device)
+    assert not got[2].any()
+    assert (got[0][valid] - 2 * 2 * np.pi / 36).abs().max().item() < 0.1
+
+
+# Slot counts that end inside a block of the kernel's layout (4 keypoints,
+# one warp each) or on its edge, and 2,048 slots with ~18 % valid.
+@pytest.mark.parametrize("n", [3, 4, 5, 7, 9, 33, 257, 2048])
+def test_orientation_kernel_at_block_edges_and_sparse_slots(cuda_device, atlases, n):
+    kw, _ = _keypoints(*atlases["bfloat16"], n, seed=n)
+    kw["radius"] = tsift._radius_class(kw["scl"], 4.5, SIFT_CFG.ori_radius_classes)
+    if n == 2048:
+        g = torch.Generator().manual_seed(4)
+        kw["valid"] = torch.rand(n, generator=g) < 0.18
+    _check_orientation_kernel(_on(cuda_device, kw))
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])

@@ -98,6 +98,34 @@ def test_gmm_stats_plain_version_matches_pallas_kernel(interpret_mode, form):
         np.testing.assert_allclose(g2, np.asarray(w2), rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("case", ["nan_in_a_masked_row", "masked_zero_rows"])
+def test_gmm_stats_plain_version_carries_masked_rows_as_pallas_kernel(interpret_mode, case):
+    """A NaN in a row of weight 0 makes every statistic of its set NaN in
+    both (softmax * 0 is NaN there); rows of zeros that all weigh 0 give
+    zeros in both. The CUDA kernel is held to the plain version on the
+    card (tests/test_torch_cuda.py)."""
+    rng = np.random.default_rng(3)
+    w, mu, cov = _gmm(rng, 8, 16)
+    desc = rng.normal(size=(64, 16)).astype(np.float32)
+    mask = (rng.random(64) > 0.5).astype(np.float32)
+    if case == "nan_in_a_masked_row":
+        desc[np.flatnonzero(mask == 0)[0], 3] = np.nan
+    else:
+        desc[:] = 0.0
+        mask[:] = 0.0
+    got = gmm_stats_reference(
+        *(torch.from_numpy(a) for a in (desc[None], mask[None], w, mu, cov)), with_ll=True
+    )
+    want = gmm_em_stats_pallas(desc, mask, w, mu, cov, block_n=32)
+    for a, b in zip(got, want):
+        a, b = a[0].numpy(), np.asarray(b)
+        np.testing.assert_array_equal(np.isnan(a), np.isnan(b))
+        if case == "nan_in_a_masked_row":
+            assert np.isnan(a).all()
+        else:
+            assert not a.any() and not b.any()
+
+
 @pytest.mark.parametrize("chunk_size", [None, 24])
 def test_fisher_encode_batch_matches_jax(chunk_size):
     rng = np.random.default_rng(2)

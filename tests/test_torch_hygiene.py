@@ -41,12 +41,13 @@ _FORBIDDEN = re.compile(
 )
 
 
-# The card's machine has no JAX: the port, chip_smoke.py, conv_probe.py and
+# The card's machine has no JAX: the port, chip_smoke.py, the probes and
 # the tests run there must not import it.
 SCOPES = {
     "package": lambda: sorted(PORT.rglob("*.py")),
     "chip_smoke": lambda: [REPO / "chip_smoke.py"],
     "conv_probe": lambda: [REPO / "conv_probe.py"],
+    "kernel_probe": lambda: [REPO / "kernel_probe.py"],
     "card_tests": lambda: [REPO / "tests" / "test_torch_cuda.py"],
 }
 
@@ -155,3 +156,22 @@ def test_conv_probe_patches_lines_that_the_conv_source_has():
     for name, edits in conv_probe.VARIANTS.items():
         for old, _ in edits:
             assert old in source, f"{name}: {old!r}"
+
+
+@pytest.mark.parametrize("source, table", [("sift_window", "SIFT_VARIANTS"),
+                                           ("gmm_stats", "GMM_VARIANTS")])
+def test_kernel_probe_patches_lines_that_the_sources_have(source, table):
+    """kernel_probe.py builds sift_window.cu and gmm_stats.cu with parts
+    removed by replacing literal lines; each must still be in its source
+    (the probe raises otherwise, and only on the card)."""
+    sys.path.insert(0, str(REPO))
+    try:
+        import kernel_probe
+    finally:
+        sys.path.remove(str(REPO))
+    text = (PORT / "csrc" / f"{source}.cu").read_text()
+    variants = getattr(kernel_probe, table)
+    assert "as built" in variants and len(variants) >= 3
+    for name, edits in variants.items():
+        for old, _ in edits:
+            assert old in text, f"{name}: {old!r}"

@@ -107,19 +107,32 @@ def _jax_stages(lb):
     merged = {k: jnp.concatenate([p[k] for p in detected], axis=1) for k in detected[0]}
     _, top = jax.lax.top_k(merged["response"], min(MAX_KP, merged["response"].shape[1]))
     cand = {k: jnp.take_along_axis(v, top, axis=1)[0] for k, v in merged.items()}
-    atlas = J._grad_atlas(tuple(g[0] for g in gauss), JCFG)
-    ori = _jax_windows(atlas, cand, J._orientation, JCFG.ori_radius_classes, 4.5)
-    (desc,) = _jax_windows(atlas, cand, J._descriptor, JCFG.desc_radius_classes, DESC_MULT,
-                           ori[0])
     return dict(up=up, base=base, gauss=gauss, dog=dog, ranked=ranked, detected=detected,
-                cand=cand, stacks=[J._magang_stacks(g[0], 0, jnp.bfloat16) for g in gauss],
-                ori=ori, desc=desc)
+                cand=cand, **_jax_atlas(tuple(g[0] for g in gauss)))
+
+
+def _jax_atlas(gauss):
+    """JAX's folded atlas of one image's Gaussian octaves, and the dense
+    bf16 stacks it folds."""
+    return dict(atlas=J._grad_atlas(gauss, JCFG),
+                stacks=[J._magang_stacks(g, 0, jnp.bfloat16) for g in gauss])
+
+
+@jax.jit
+def _jax_orientation(atlas, cand):
+    """JAX's orientation of the keypoints ``cand`` on ``atlas``: one
+    compiled program for every atlas of the run's shapes."""
+    return _jax_windows(atlas, cand, J._orientation, JCFG.ori_radius_classes, 4.5)
 
 
 @pytest.fixture(scope="module")
 def jax_run():
     lb = J._letterbox(blob_image(), PS)
-    return dict(_jax_stages(jnp.asarray(lb)), lb=lb)
+    run = _jax_stages(jnp.asarray(lb))
+    ori = _jax_orientation(run["atlas"], run["cand"])
+    (desc,) = jax.jit(_jax_windows, static_argnums=(2, 3, 4))(
+        run["atlas"], run["cand"], J._descriptor, JCFG.desc_radius_classes, DESC_MULT, ori[0])
+    return dict(run, ori=ori, desc=desc, lb=lb)
 
 
 def test_gaussian_kernel_and_blur_match_jax():
@@ -267,9 +280,9 @@ def test_gradient_atlas_matches_jax(jax_run):
         assert (diff == 0).mean() > 0.999
 
 
-def _window_args(jax_run, classes, mult):
+def _window_args(jax_run, classes, mult, stacks=None):
     cand = {k: torch.from_numpy(np.asarray(v)) for k, v in jax_run["cand"].items()}
-    atlas, octaves = _port_atlas(jax_run["stacks"])
+    atlas, octaves = _port_atlas(jax_run["stacks"] if stacks is None else stacks)
     n = cand["valid"].numel()
     return dict(atlas=atlas, octaves=octaves, img=torch.zeros(n, dtype=torch.int32),
                 octave=cand["octave"], layer=cand["layer"], row=cand["r"], col=cand["c"],
@@ -287,6 +300,29 @@ def test_orientation_matches_jax(jax_run):
     np.testing.assert_allclose(got[0].numpy()[valid], want[0][valid], atol=1e-4)
     np.testing.assert_allclose(got[1].numpy()[want[2] > 0], want[1][want[2] > 0], atol=1e-4)
     assert valid.sum() > 40 and (want[2] > 0).any()
+
+
+def test_orientation_of_one_bin_windows_matches_jax(jax_run):
+    """Every window pixel's gradient points 20 degrees up (the octaves are
+    ramps f(c - tan(20 deg) r) with f' > 0), so each histogram has one
+    nonzero bin: the same angles and second-peak flags as JAX, and the
+    angle of bin 2."""
+    ramps = []
+    for g in jax_run["gauss"]:
+        levels, h, w = g[0].shape
+        rr, cc = np.mgrid[:h, :w].astype(np.float32)
+        u = cc - np.float32(np.tan(np.pi / 9)) * rr
+        ramp = u + 0.002 * (u + 100.0) ** 2
+        ramps.append(jnp.asarray(np.stack([ramp * (1 + 0.25 * i) for i in range(levels)])))
+    run = _jax_atlas(tuple(ramps))
+    want = [np.asarray(a) for a in _jax_orientation(run["atlas"], jax_run["cand"])]
+    got = K.orientation_reference(**_window_args(jax_run, TCFG.ori_radius_classes, 4.5,
+                                                 stacks=run["stacks"]))
+    valid = np.asarray(jax_run["cand"]["valid"])
+    np.testing.assert_array_equal(got[2].numpy(), want[2] > 0)
+    np.testing.assert_allclose(got[0].numpy()[valid], want[0][valid], atol=1e-4)
+    assert not got[2].any()
+    np.testing.assert_allclose(got[0].numpy()[valid], 2 * 2 * np.pi / 36, atol=1e-6)
 
 
 def test_descriptor_matches_jax(jax_run):
