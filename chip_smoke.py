@@ -12,11 +12,17 @@ Phases, each of which raises on a failed check:
 2. Kernels, each against its plain PyTorch version on the card, timed
    with CUDA events beside its bound, with a device profile:
    a. VLAD aggregation at the main path's shape (128 sets of 196 x 514
-      descriptors, K=256), on margin data: labels must agree exactly,
-      outputs to 1e-4 * max|ref| + 1e-5; then held to the same gates
-      (labels on the valid rows) and timed on the arguments a RootSIFT
-      VLAD encode of slice 3's 64 images gives it (64 sets of 2,048 x
-      128, about 361 valid rows a set);
+      descriptors, K=256, set 0 fully masked), on margin data: weighted
+      rows' labels equal to the plain argmin's, weightless rows' equal or
+      -1 (the kernel's label of a row of zero weight), set 0's all -1,
+      outputs to 1e-4 * max|ref| + 1e-5; then held to the same gates,
+      two calls bit-equal, and timed on the arguments a RootSIFT VLAD
+      encode of slice 3's 64 images gives it (64 sets of 2,048 x 128,
+      about 361 valid rows a set); device time by pass at both shapes.
+      At both, the NaN probe of kernels 1 and 3: a NaN in a weighted row,
+      a NaN or an inf in a weightless row must give NaN and inf exactly
+      where the plain versions do (column 7 of the set in every cluster)
+      and Lloyd's inertia NaN where the plain version's is;
    b. GMM statistics with the shipped GMM-k256 on 257-D descriptors drawn
       from it, in the Fisher-vector form (128 sets of 196, one fully
       masked, one fractional weight) and the EM form (one set of 25,088
@@ -28,7 +34,8 @@ Phases, each of which raises on a failed check:
       were): s0/s1/s2 to 1e-4 * max|ref| + 1e-5, each form's two calls
       bit-equal, device time by pass;
    c. Lloyd statistics on one set of 25,088 x 514 margin rows, K=256:
-      labels exact, counts equal, sums as above, inertia to rel 1e-5.
+      labels as in a, counts equal, sums as above, inertia to rel 1e-5;
+      device time by pass.
    d. The SIFT kernels (refinement, orientation, descriptor) on the
       arguments one 16-image device call of the SIFT core at the default
       SiftConfig() gives them (process size 512, 2048 keypoints), at two
@@ -94,6 +101,7 @@ from __future__ import annotations
 
 import json
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -222,8 +230,10 @@ def phase_environment(build):
     return smi
 
 
-def phase_kernel(agg):
-    """The kernel against its plain version on margin data."""
+def margin_vlad_inputs():
+    """Phase 2a's inputs on the card: 128 sets of 196 x 514 descriptors near
+    256 known centers (no label is a near tie), a tenth of the rows
+    weightless, set 0 fully masked, one fractional weight."""
     g = torch.Generator(device="cpu").manual_seed(0)
     protos = torch.randn(K, D, generator=g)
     true = torch.randint(0, K, (B * N,), generator=g)
@@ -233,24 +243,44 @@ def phase_kernel(agg):
     mask = (torch.rand(B, N, generator=g) > 0.1).float()
     mask[0] = 0.0  # one fully masked set
     mask[1, 3] = 0.37  # one fractional weight
-    desc, mask, centers = desc.cuda(), mask.cuda(), centers.cuda()
+    return desc.cuda(), mask.cuda(), centers.cuda()
+
+
+def margin_lloyd_inputs():
+    """Phase 2c's inputs on the card: one set of 25,088 x 514 rows near 256
+    known centers, a tenth weightless, one fractional weight."""
+    g = torch.Generator(device="cpu").manual_seed(4)
+    protos = torch.randn(K, D, generator=g)
+    true = torch.randint(0, K, (N_TRAIN,), generator=g)
+    true[:K] = torch.arange(K)  # every cluster populated
+    desc = (protos[true] + 0.1 * torch.randn(N_TRAIN, D, generator=g)).cuda()
+    centers = (protos + 0.01 * torch.randn(K, D, generator=g)).cuda()
+    mask = (torch.rand(N_TRAIN, generator=g) > 0.1).float()
+    mask[7] = 0.375  # one fractional weight, exact in f32 so counts compare exactly
+    return desc, mask.cuda(), centers
+
+
+def phase_kernel(agg, ls):
+    """The kernel against its plain version on margin data; then the NaN
+    probe of kernels 1 and 3 on the same rows."""
+    desc, mask, centers = margin_vlad_inputs()
 
     out, labels = agg.vlad_aggregate_batched(desc, mask, centers, return_labels=True)
     ref, ref_labels = agg.vlad_aggregate_reference(desc, mask, centers, return_labels=True)
     torch.cuda.synchronize()
-    mismatches = int((labels != ref_labels).sum())
+    mismatches = label_gate(labels, ref_labels, mask, "kernel")
+    check(bool((labels[0] == -1).all()), "the fully masked set's labels are not all -1")
     max_diff = float((out - ref).abs().max())
     tol = 1e-4 * float(ref.abs().max()) + 1e-5
     log(f"kernel: label mismatches {mismatches}, max|diff| {max_diff:.3e} (tol {tol:.3e})")
-    check(mismatches == 0, f"{mismatches} labels differ from the plain argmin")
     check(max_diff <= tol, f"kernel output off by {max_diff} > {tol}")
     check(float(out[0].abs().max()) == 0.0, "fully masked set did not aggregate to zero")
 
     kernel_ms = cuda_ms(lambda: agg.vlad_aggregate_batched(desc, mask, centers))
     plain_ms = cuda_ms(lambda: agg.vlad_aggregate_reference(desc, mask, centers))
-    log(json.dumps({"kernel_profile": profile_device_graph(
-        lambda: agg.vlad_aggregate_batched(desc, mask, centers), reps=10, top=4
-    )}))
+    prof = profile_device_graph(lambda: agg.vlad_aggregate_batched(desc, mask, centers),
+                                reps=10, top=4)
+    log(json.dumps({"kernel_profile": prof}))
     n_valid = int((mask != 0).sum())
     n_bytes = 4 * (B * N * D + B * N + K * D + B * K * D)
     n_ops = 2 * n_valid * K * D + 2 * n_valid * D + 2 * B * K * D
@@ -259,8 +289,9 @@ def phase_kernel(agg):
     log(
         f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
         f"{max(bytes_ms, ops_ms):.4f} ms ({n_ops / 1e9:.3f} GFLOP f32 -> {ops_ms:.4f} ms, "
-        f"{n_bytes / 1e6:.1f} MB -> {bytes_ms:.4f} ms)"
+        f"{n_bytes / 1e6:.1f} MB -> {bytes_ms:.4f} ms); device by pass {by_pass(prof)}"
     )
+    nan_outputs = aggregate_nan_probe(agg, ls, desc, mask, centers, "deep")
     return {
         "name": "vlad_aggregate",
         "route": "cuda",
@@ -277,7 +308,76 @@ def phase_kernel(agg):
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
         "library_ms": None,
+        "device_ms": prof["kernel_ms_per_call"],
+        "device_ms_by_pass": by_pass(prof),
+        "nan_probe_outputs": nan_outputs,
     }
+
+
+def label_gate(labels, ref_labels, mask, what: str) -> int:
+    """Kernels 1 and 3's labels against the plain argmin's: every row of
+    nonzero weight equal, every row of zero weight equal or -1 (the kernels
+    give such rows -1). Returns the weighted rows that differ."""
+    weighted = mask != 0
+    mismatches = int((labels != ref_labels)[weighted].sum())
+    rest = labels[~weighted]
+    stray = int(((rest != ref_labels[~weighted]) & (rest != -1)).sum())
+    check(mismatches == 0, f"{what}: {mismatches} weighted rows' labels differ from the plain "
+          "argmin")
+    check(stray == 0, f"{what}: {stray} weightless rows' labels are neither the plain argmin's "
+          "nor -1")
+    return mismatches
+
+
+def by_pass(prof: dict) -> dict:
+    """A device profile's ms per call by kernel, under the kernels' short
+    names."""
+    out = {}
+    for t in prof["top"]:
+        name = re.search(r"::(\w+)", t["kernel"]) or re.match(r"\w+", t["kernel"])
+        name = name.group(name.lastindex or 0)
+        out[name] = out.get(name, 0.0) + t["ms_per_call"]
+    return out
+
+
+def aggregate_nan_probe(agg, ls, desc, mask, centers, shape: str) -> dict:
+    """Kernels 1 and 3 on ``desc`` with one value poisoned in set 1, column
+    7: a NaN in a weighted row, a NaN in a weightless row, an inf in a
+    weightless row. Each must be NaN and +-inf exactly where its plain
+    version is (the plain one-hot product makes column 7 of set 1 NaN in
+    every cluster), equal to it within 1e-4 * max|ref| + 1e-5 elsewhere,
+    and Lloyd's inertia NaN where the plain version's is. Kernel 3 takes
+    the rows of all sets as one set. Returns the NaN outputs of each."""
+    counts = {}
+    d = desc.shape[-1]
+    for case in ("nan_weighted", "nan_weightless", "inf_weightless"):
+        rows = ((mask[1] != 0) == (case == "nan_weighted")).nonzero()[:, 0]
+        row = int(rows[len(rows) // 2])  # inside the masked tail of a RootSIFT set
+        x = desc.clone()
+        x[1, row, 7] = float("inf") if case.startswith("inf") else float("nan")
+        got = agg.vlad_aggregate_batched(x, mask, centers)
+        want = agg.vlad_aggregate_reference(x, mask, centers)
+        flat, m = x.reshape(-1, d), mask.reshape(-1)
+        lgot = ls.lloyd_stats(flat, m, centers)
+        lwant = ls.lloyd_stats_reference(flat, m, centers)
+        torch.cuda.synchronize()
+        for what, a, b in ((f"vlad {shape} {case}", got, want),
+                           (f"lloyd {shape} {case} sums", lgot[0], lwant[0])):
+            check(bool(b.isnan().any()), f"{what}: the plain version lost the NaN")
+            check(torch.equal(a.isnan(), b.isnan()), f"{what}: NaN where the plain version has "
+                  f"none or none where it has: {int(a.isnan().sum())} vs {int(b.isnan().sum())}")
+            check(torch.equal(a.isinf(), b.isinf()) and torch.equal(a[a.isinf()], b[b.isinf()]),
+                  f"{what}: inf differs from the plain version")
+            fin = b.isfinite()
+            err = float((a[fin] - b[fin]).abs().max())
+            tol = 1e-4 * float(b[fin].abs().max()) + 1e-5
+            check(err <= tol, f"{what}: finite entries off by {err} > {tol}")
+            counts[what] = int(a.isnan().sum())
+        check(bool(lgot[2].isnan()) == bool(lwant[2].isnan()),
+              f"lloyd {shape} {case}: inertia {float(lgot[2])}, plain {float(lwant[2])}")
+        counts[f"lloyd {shape} {case} inertia"] = str(float(lgot[2]))  # JSON has no NaN
+    log(f"aggregate NaN probe ({shape}): {counts}")
+    return counts
 
 
 def bound(n_ops: int, n_bytes: int) -> dict:
@@ -383,19 +483,21 @@ def rootsift_encode_calls():
     return vlad_calls[0], gmm_calls[0]
 
 
-def check_vlad_rootsift(agg, call) -> dict:
+def check_vlad_rootsift(agg, ls, call) -> dict:
     """Kernel 1 at the RootSIFT VLAD encode's shape, held against its plain
     version there as phase 2a holds it (every valid row's label equal, the
-    sums within 1e-4 * max|ref| + 1e-5), and timed for the table beside
-    the plain version, with its bound on the valid rows."""
+    others equal or -1, the sums within 1e-4 * max|ref| + 1e-5, two calls
+    bit-equal), timed for the table beside the plain version, with its
+    bound on the valid rows, and profiled by pass; then the NaN probe of
+    kernels 1 and 3 on these rows."""
     (desc, mask, centers), _ = call
     out, labels = agg.vlad_aggregate_batched(desc, mask, centers, return_labels=True)
+    again = agg.vlad_aggregate_batched(desc, mask, centers)
     ref, ref_labels = agg.vlad_aggregate_reference(desc, mask, centers, return_labels=True)
     torch.cuda.synchronize()
     valid = mask != 0
-    mismatches = int((labels != ref_labels)[valid].sum())
-    check(mismatches == 0, f"vlad rootsift form: {mismatches} valid-row labels differ from the "
-          "plain argmin")
+    mismatches = label_gate(labels, ref_labels, mask, "vlad rootsift form")
+    check(same_bits(out, again), "VLAD kernel does not repeat bit for bit (RootSIFT form)")
     err = max_err(out, ref, "vlad rootsift form sums")
     ms = cuda_ms(lambda: agg.vlad_aggregate_batched(desc, mask, centers))
     plain_ms = cuda_ms(lambda: agg.vlad_aggregate_reference(desc, mask, centers))
@@ -404,11 +506,17 @@ def check_vlad_rootsift(agg, call) -> dict:
     n_valid = int(valid.sum())
     b = bound(2 * n_valid * k_ * d_ + 2 * n_valid * d_ + 2 * b_ * k_ * d_,
               4 * (b_ * n_ * d_ + b_ * n_ + k_ * d_ + b_ * k_ * d_))
+    prof = profile_device_graph(lambda: agg.vlad_aggregate_batched(desc, mask, centers),
+                                reps=10, top=4)
+    log(json.dumps({"kernel_profile_vlad_rootsift": prof}))
     log(f"vlad rootsift form ({b_} x {n_} x {d_}, K={k_}, {n_valid} valid rows): "
         f"{mismatches} valid-row labels differ, max|diff| {err:.3e}; kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b})")
+        f"plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b}); device by pass "
+        f"{by_pass(prof)}")
+    nan_outputs = aggregate_nan_probe(agg, ls, desc, mask, centers, "rootsift")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
-            "max_abs_err": err, "label_mismatches": mismatches,
+            "device_ms": prof["kernel_ms_per_call"], "device_ms_by_pass": by_pass(prof),
+            "max_abs_err": err, "label_mismatches": mismatches, "nan_probe_outputs": nan_outputs,
             "shape": f"rootsift B={b_} N={n_} D={d_} K={k_}, {n_valid} valid rows"}
 
 
@@ -533,22 +641,13 @@ def check_gmm_rootsift(gs, call) -> dict:
 def phase_lloyd_kernel(ls):
     """The Lloyd statistics kernel against its plain version on one set of
     margin rows at the training shape."""
-    g = torch.Generator(device="cpu").manual_seed(4)
-    protos = torch.randn(K, D, generator=g)
-    true = torch.randint(0, K, (N_TRAIN,), generator=g)
-    true[:K] = torch.arange(K)  # every cluster populated
-    desc = (protos[true] + 0.1 * torch.randn(N_TRAIN, D, generator=g)).cuda()
-    centers = (protos + 0.01 * torch.randn(K, D, generator=g)).cuda()
-    mask = (torch.rand(N_TRAIN, generator=g) > 0.1).float()
-    mask[7] = 0.375  # one fractional weight, exact in f32 so counts compare exactly
-    mask = mask.cuda()
+    desc, mask, centers = margin_lloyd_inputs()
     sums, counts, inertia, labels = ls.lloyd_stats(desc, mask, centers, return_labels=True)
     r_sums, r_counts, r_inertia, r_labels = ls.lloyd_stats_reference(
         desc, mask, centers, return_labels=True)
     torch.cuda.synchronize()
-    mismatches = int((labels != r_labels).sum())
+    mismatches = label_gate(labels, r_labels, mask, "lloyd")
     log(f"lloyd: label mismatches {mismatches}")
-    check(mismatches == 0, f"{mismatches} Lloyd labels differ from the plain argmin")
     err = max_err(sums, r_sums, "lloyd sums")
     check(torch.equal(counts, r_counts), "Lloyd counts differ")
     rel = abs(float(inertia) - float(r_inertia)) / float(r_inertia)
@@ -559,9 +658,10 @@ def phase_lloyd_kernel(ls):
     n_valid = int((mask != 0).sum())
     lb = bound(2 * n_valid * K * D + 2 * n_valid * D,
                4 * (N_TRAIN * D + N_TRAIN + K * D + K * D + K + 1))
-    log(f"lloyd: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {lb['bound_ms']:.4f} ms ({lb})")
-    log(json.dumps({"kernel_profile_lloyd": profile_device_graph(
-        lambda: ls.lloyd_stats(desc, mask, centers), reps=10, top=6)}))
+    prof = profile_device_graph(lambda: ls.lloyd_stats(desc, mask, centers), reps=10, top=6)
+    log(json.dumps({"kernel_profile_lloyd": prof}))
+    log(f"lloyd: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {lb['bound_ms']:.4f} ms "
+        f"({lb}); device by pass {by_pass(prof)}")
     return {
         "name": "lloyd_stats",
         "route": "cuda",
@@ -576,6 +676,8 @@ def phase_lloyd_kernel(ls):
         "bound_ms": lb["bound_ms"],
         "bound_by": lb["bound_by"],
         "library_ms": None,
+        "device_ms": prof["kernel_ms_per_call"],
+        "device_ms_by_pass": by_pass(prof),
         "shape": f"N={N_TRAIN} D={D} K={K}",
     }
 
@@ -1643,9 +1745,9 @@ def main() -> int:
 
     t0 = time.perf_counter()
     phase_environment(_build)
-    kernel = phase_kernel(agg)
+    kernel = phase_kernel(agg, ls)
     vlad_rootsift_call, gmm_rootsift_call = rootsift_encode_calls()
-    kernel["rootsift_vlad"] = check_vlad_rootsift(agg, vlad_rootsift_call)
+    kernel["rootsift_vlad"] = check_vlad_rootsift(agg, ls, vlad_rootsift_call)
     gmm_kernel = phase_gmm_kernel(gs, shipped_gmm(), gmm_rootsift_call)
     del vlad_rootsift_call, gmm_rootsift_call
     lloyd_kernel = phase_lloyd_kernel(ls)

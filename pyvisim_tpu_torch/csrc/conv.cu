@@ -12,7 +12,7 @@
 //          y   = relu(float(acc) * (sx[b] * sw[c]) + b[c])   then the 2x2 max if POOL
 // The pool floors odd H and W, as torch's MaxPool2d(2, 2) does. The result is
 // rounded once, to x's dtype. ReLU and the 2x2 max carry NaN, as torch.relu,
-// F.max_pool2d and jnp.maximum do (max_nan below), and so does kernel 8's
+// F.max_pool2d and jnp.maximum do (max_nan, device_utils.cuh), and so does kernel 8's
 // amax: an image holding a NaN gets a NaN scale and NaN outputs, as its
 // plain version and the JAX package give.
 //
@@ -91,17 +91,9 @@
 
 #include <stdint.h>
 
+#include "device_utils.cuh"
+
 namespace {
-
-// max(a, b), and NaN when either is NaN (fmaxf returns the other operand):
-// one max.NaN instruction.
-__device__ __forceinline__ float max_nan(float a, float b) {
-  float r;
-  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-}
-
-__device__ __forceinline__ int max_nan(int a, int b) { return max(a, b); }
 
 // ---------------------------------------------------------------------------
 // Kernel 7 in f32, on the CUDA cores.
@@ -121,15 +113,6 @@ constexpr int kEpBytes = kTile * kTile * kEpStride * 4;    // 73,728
 constexpr int kSmemBytes =
     kEpBytes > kHaloBytes + kWeightBytes ? kEpBytes : kHaloBytes + kWeightBytes;
 constexpr int kChunk = kChunkBytes / 4;                    // f32 channels per chunk
-
-// 16 bytes from global to shared memory without passing through registers;
-// zeros when !valid (src is then not read).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
@@ -426,10 +409,6 @@ struct TileShape {
                 "a tile is four 8x8 sub-tiles");
   static_assert(kStageBytes % 128 == 0, "stages must stay 128-byte aligned");
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // d (64 x 64 int32, the warpgroup's accumulator fragment) += A (64 x 32
 // int8) * B (64 x 32 int8)^T, both K-major in shared memory.

@@ -62,6 +62,7 @@
 
 #include <algorithm>
 
+#include "device_utils.cuh"
 #include "reduce.cuh"
 
 namespace {
@@ -124,33 +125,6 @@ Plan make_plan(int B, int N, int D, int K) {
   if (p.S > 1) at += align(static_cast<long long>(B) * p.S * (K + 2LL * K * D));
   p.total = at;
   return p;
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* ptr) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(ptr));
-}
-
-// Copies 4 (16) bytes to shared memory, or writes zeros when !ok.
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(ok ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Waits until at most `pending` of this thread's groups are in flight.
-template <int pending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(pending) : "memory");
 }
 
 // Non-negative floats order as their bits; NaN sorts above +inf.

@@ -11,14 +11,15 @@ Bound: the nearest-centroid assignment is ``2*B*N*K*D`` flops in full
 f32 (6.6 GFLOP at B=128, N=196, D=514, K=256, ~0.1 ms on the card's f32
 CUDA cores), against ~120 MB of descriptors in and residuals out, so the
 f32 rate bounds it. TF32 would flip labels near ties, so the kernel uses
-f32 FMAs; the (N, K) distance block never reaches device memory, and the
-accumulation walks each set in order without atomics, so results repeat
-bit for bit. See the source for the three passes.
+f32 FMAs; the (N, K) distance block never reaches device memory, rows of
+zero weight in whole row tiles are only read for their non-finite
+values, and each cluster's rows are summed in row order without float
+atomics, so results repeat bit for bit. NaN and inf reach the output as
+in the plain one-hot product. See the source for the three passes.
 """
 from __future__ import annotations
 
 import ctypes
-import math
 
 import torch
 import torch.nn.functional as F
@@ -27,17 +28,6 @@ from ..assign import nearest_centroid
 from ._build import load_library
 
 __all__ = ["vlad_aggregate_reference", "vlad_aggregate_batched"]
-
-# Rows of one set that one block of a statistics pass sums; the Lloyd and
-# GMM kernels cut a longer set into segments and add their partials in order.
-_SEGMENT = 1024
-_MAX_SEGMENTS = 256
-
-
-def segment_rows(n: int) -> int:
-    """Rows per segment of an ``n``-row set: whole sets up to ``_SEGMENT``
-    rows, else enough that there are at most ``_MAX_SEGMENTS``."""
-    return max(_SEGMENT, math.ceil(n / _MAX_SEGMENTS))
 
 
 def vlad_aggregate_reference(
@@ -95,14 +85,21 @@ def _library() -> ctypes.CDLL:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.vlad_aggregate_f32.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
         lib.vlad_aggregate_f32.restype = i32
-        lib.lloyd_stats_f32.argtypes = [ptr] * 11 + [i32] * 5 + [ptr]
+        lib.lloyd_stats_f32.argtypes = [ptr] * 8 + [i32] * 4 + [ptr]
         lib.lloyd_stats_f32.restype = i32
-        lib.vlad_accumulate_cols.argtypes = [i32, i32]
-        lib.vlad_accumulate_cols.restype = i32
+        lib.aggregate_scratch_words.argtypes = [i32] * 5
+        lib.aggregate_scratch_words.restype = ctypes.c_longlong
         lib.vlad_error_string.argtypes = [i32]
         lib.vlad_error_string.restype = ctypes.c_char_p
         lib._pyvisim_typed = True
     return lib
+
+
+def scratch(lib: ctypes.CDLL, b: int, n: int, d: int, k: int, lloyd: bool,
+            device: torch.device) -> torch.Tensor:
+    """The kernel's scratch for one call (the source's ``make_plan``)."""
+    words = lib.aggregate_scratch_words(b, n, d, k, int(lloyd))
+    return torch.empty((words,), dtype=torch.int32, device=device)
 
 
 def vlad_aggregate_batched(
@@ -113,7 +110,9 @@ def vlad_aggregate_batched(
 
     CPU tensors take :func:`vlad_aggregate_reference`; CUDA tensors launch
     the kernel, which raises if it fails. ``launches`` counts the kernel's
-    launches. With ``return_labels`` the ``(B, N)`` int32 labels come too.
+    launches. With ``return_labels`` the ``(B, N)`` int32 labels come too;
+    the kernel gives a row of zero weight the label -1, where the plain
+    version gives every row its nearest center.
     """
     _check(desc, mask, centers)
     if desc.device.type == "cpu":
@@ -122,7 +121,7 @@ def vlad_aggregate_batched(
         raise ValueError(f"vlad_aggregate_batched runs on cpu or cuda, not {desc.device}")
     b, n, d = desc.shape
     k = centers.shape[0]
-    if b * n >= 2**31 or b * k * d >= 2**62:
+    if b * n >= 2**31 or b * max(d, k) >= 2**31 or b * k * d >= 2**62:
         raise ValueError(f"batch too large for the kernel: {tuple(desc.shape)}, K={k}")
     out = torch.empty((b, k, d), dtype=torch.float32, device=desc.device)
     labels = torch.empty((b, n), dtype=torch.int32, device=desc.device)
@@ -131,11 +130,9 @@ def vlad_aggregate_batched(
         return (out, labels) if return_labels else out
     lib = _library()
     dev, stream = launch_target(desc.device)
-    if lib.vlad_accumulate_cols(k, dev) == 0:
-        raise ValueError(f"K={k} centers do not fit the kernel's shared-memory accumulator")
-    c2 = torch.empty((k,), dtype=torch.float32, device=desc.device)
+    work = scratch(lib, b, n, d, k, False, desc.device)
     err = lib.vlad_aggregate_f32(
-        desc.data_ptr(), mask.data_ptr(), centers.data_ptr(), c2.data_ptr(),
+        desc.data_ptr(), mask.data_ptr(), centers.data_ptr(), work.data_ptr(),
         labels.data_ptr(), out.data_ptr(), b, n, d, k, dev, stream,
     )
     if err != 0:

@@ -9,18 +9,16 @@ by ``lloyd_stats_pallas``).
 Bound: the assignment is ``2*N*K*D`` flops in full f32 (6.6 GFLOP at
 N=25,088, D=514, K=256, ~0.1 ms on the card's f32 CUDA cores) against
 51.6 MB of descriptors in, so the f32 rate bounds it. Labels must be the
-plain argmin's, so the products are f32 FMAs, not TF32. One set's rows are
-cut into segments whose partial sums are added in a fixed order, so
-results repeat bit for bit.
+plain argmin's, so the products are f32 FMAs, not TF32. Each cluster's
+rows are summed in row order and the clusters' inertia in a fixed order,
+so results repeat bit for bit; NaN and inf travel as in the plain version.
 """
 from __future__ import annotations
-
-import math
 
 import torch
 
 from ..assign import pairwise_sqdist
-from .aggregate import _library, check_kernel_inputs, launch_target, segment_rows
+from .aggregate import _library, check_kernel_inputs, launch_target, scratch
 
 __all__ = ["lloyd_stats_reference", "lloyd_stats"]
 
@@ -64,7 +62,7 @@ def lloyd_stats(
 
     CPU tensors take :func:`lloyd_stats_reference`; CUDA tensors launch the
     kernel, which raises if it fails. ``launches`` counts the kernel's
-    launches.
+    launches. The kernel's labels are -1 for rows of zero weight.
     """
     _check(desc, mask, centers)
     if desc.device.type == "cpu":
@@ -73,7 +71,7 @@ def lloyd_stats(
         raise ValueError(f"lloyd_stats runs on cpu or cuda, not {desc.device}")
     n, d = desc.shape
     k = centers.shape[0]
-    if n >= 2**31:
+    if n >= 2**31 or k * d >= 2**62:
         raise ValueError(f"set too large for the kernel: {tuple(desc.shape)}")
     dev = desc.device
     sums = torch.empty((k, d), dtype=torch.float32, device=dev)
@@ -87,18 +85,11 @@ def lloyd_stats(
         return out
     lib = _library()
     index, stream = launch_target(dev)
-    if lib.vlad_accumulate_cols(k, index) == 0:
-        raise ValueError(f"K={k} centers do not fit the kernel's shared-memory accumulator")
-    seg = segment_rows(n)
-    n_seg = math.ceil(n / seg)
-    part_sums = torch.empty((n_seg, k, d), dtype=torch.float32, device=dev) if n_seg > 1 else sums
-    part_counts = torch.empty((n_seg, k), dtype=torch.float32, device=dev) if n_seg > 1 else counts
-    c2 = torch.empty((k,), dtype=torch.float32, device=dev)
-    err_rows = torch.empty((n,), dtype=torch.float32, device=dev)
+    work = scratch(lib, 1, n, d, k, True, dev)
     err = lib.lloyd_stats_f32(
-        desc.data_ptr(), mask.data_ptr(), centers.data_ptr(), c2.data_ptr(),
-        labels.data_ptr(), err_rows.data_ptr(), part_sums.data_ptr(), part_counts.data_ptr(),
-        sums.data_ptr(), counts.data_ptr(), inertia.data_ptr(), n, d, k, seg, index, stream,
+        desc.data_ptr(), mask.data_ptr(), centers.data_ptr(), work.data_ptr(),
+        labels.data_ptr(), sums.data_ptr(), counts.data_ptr(), inertia.data_ptr(), n, d, k,
+        index, stream,
     )
     if err != 0:
         raise RuntimeError(

@@ -50,9 +50,22 @@ def _margin_batch(b, n, d, k, seed=0):
     return desc, mask, centers
 
 
+def _labels_agree(labels, ref_labels, mask):
+    """Rows of nonzero weight carry the plain argmin's label; a row of zero
+    weight carries it too or -1, the kernel's label of a row it need not
+    assign."""
+    weighted = mask != 0
+    assert torch.equal(labels[weighted], ref_labels[weighted])
+    rest = labels[~weighted]
+    assert bool(((rest == ref_labels[~weighted]) | (rest == -1)).all())
+
+
+def _same_bits(a, b):
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
 # (B, N, D, K): the main path's widths; ragged row, depth, column and
-# center tiles; and enough centers that the accumulator takes 128-, 64-
-# and 32-column slices.
+# center tiles; and K = 600 and 1000.
 SHAPES = [
     (4, 196, 514, 16), (3, 2048, 128, 256), (3, 17, 33, 5), (2, 300, 130, 70), (1, 50, 514, 300),
     (1, 40, 130, 600), (1, 30, 70, 1000),
@@ -67,7 +80,7 @@ def test_vlad_kernel_matches_plain_version(cuda_device, shape):
     ref, ref_labels = tagg.vlad_aggregate_reference(desc, mask, centers, return_labels=True)
     torch.cuda.synchronize()
     assert tagg.vlad_aggregate_batched.launches == before + 1
-    assert torch.equal(labels, ref_labels)
+    _labels_agree(labels, ref_labels, mask)
     # f32 sums in another order than the plain bmm's.
     tol = 1e-4 * ref.abs().max().item() + 1e-5
     assert (out - ref).abs().max().item() <= tol
@@ -243,7 +256,7 @@ def test_lloyd_kernel_matches_plain_version(cuda_device, shape):
     want = tls.lloyd_stats_reference(desc, mask, centers, return_labels=True)
     torch.cuda.synchronize()
     assert tls.lloyd_stats.launches == before + 1
-    assert torch.equal(got[3], want[3])
+    _labels_agree(got[3], want[3], mask)
     _close(got[0], want[0], "sums")
     _close(got[1], want[1], "counts")
     torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=1e-4)
@@ -256,6 +269,119 @@ def test_lloyd_kernel_empty_set(cuda_device):
     sums, counts, inertia = tls.lloyd_stats(desc[0], mask[0], centers)
     assert tuple(sums.shape) == (3, 16)
     assert not (sums.any() or counts.any() or inertia.item())
+
+
+# Kernels 1 and 3 on non-finite inputs. (B, N, D, K, valid rows a set):
+# the deep VLAD shape with a tenth of the rows weightless at random, and
+# RootSIFT-like sets whose weight is a prefix (the rest in weightless
+# row tiles). Lloyd takes the same rows as one set.
+NONFINITE_SHAPES = {"deep": (128, 196, 514, 256, None), "prefix": (4, 2048, 128, 256, 361)}
+NONFINITE_CASES = ("nan_weighted", "nan_weightless", "inf_weightless", "inf_weighted")
+
+
+def _poisoned(shape, case):
+    b, n, d, k, n_valid = shape
+    desc, mask, centers = _margin_batch(b, n, d, k, seed=3)
+    if n_valid is not None:
+        mask = torch.zeros_like(mask)
+        mask[:, :n_valid] = 1.0
+        mask[0, 5] = 0.37
+    weighted = case.endswith("_weighted")
+    rows = ((mask[1] != 0) == weighted).nonzero()[:, 0]
+    row = int(rows[len(rows) // 2])  # with a prefix, a weightless row tile's
+    desc[1, row, 7] = float("inf") if case.startswith("inf") else float("nan")
+    return desc, mask, centers
+
+
+def _nonfinite_agree(got, want):
+    """NaN and +-inf exactly where the plain version has them, the finite
+    entries within the tolerance of the clean tests."""
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got.isinf(), want.isinf())
+    assert torch.equal(got[got.isinf()], want[want.isinf()])
+    finite = want.isfinite()
+    if finite.any():
+        _close(got[finite], want[finite], "finite entries")
+
+
+@pytest.mark.parametrize("case", NONFINITE_CASES)
+@pytest.mark.parametrize("shape", sorted(NONFINITE_SHAPES))
+def test_vlad_kernel_carries_nan_and_inf_as_the_plain_version(cuda_device, shape, case):
+    desc, mask, centers = (t.to(cuda_device) for t in _poisoned(NONFINITE_SHAPES[shape], case))
+    out, labels = tagg.vlad_aggregate_batched(desc, mask, centers, return_labels=True)
+    again = tagg.vlad_aggregate_batched(desc, mask, centers)
+    ref, ref_labels = tagg.vlad_aggregate_reference(desc, mask, centers, return_labels=True)
+    torch.cuda.synchronize()
+    # The plain bmm's 0 * NaN and 0 * inf: column 7 of set 1 is NaN in
+    # every cluster, but for an inf in a weighted row, which leaves +-inf
+    # in its own cluster.
+    assert int(ref[1, :, 7].isnan().sum()) == ref.shape[1] - (case == "inf_weighted")
+    _nonfinite_agree(out, ref)
+    _labels_agree(labels, ref_labels, mask)
+    assert _same_bits(out, again)
+
+
+@pytest.mark.parametrize("case", NONFINITE_CASES)
+@pytest.mark.parametrize("shape", sorted(NONFINITE_SHAPES))
+def test_lloyd_kernel_carries_nan_and_inf_as_the_plain_version(cuda_device, shape, case):
+    desc, mask, centers = _poisoned(NONFINITE_SHAPES[shape], case)
+    d = desc.shape[-1]
+    desc, mask, centers = (t.to(cuda_device) for t in (desc.reshape(-1, d), mask.reshape(-1),
+                                                        centers))
+    got = tls.lloyd_stats(desc, mask, centers, return_labels=True)
+    again = tls.lloyd_stats(desc, mask, centers, return_labels=True)
+    want = tls.lloyd_stats_reference(desc, mask, centers, return_labels=True)
+    torch.cuda.synchronize()
+    assert int(want[0][:, 7].isnan().sum()) == want[0].shape[0] - (case == "inf_weighted")
+    _nonfinite_agree(got[0], want[0])
+    _close(got[1], want[1], "counts")
+    assert bool(got[2].isnan()) == bool(want[2].isnan())
+    _labels_agree(got[3], want[3], mask)
+    assert all(_same_bits(a, b) for a, b in zip(got, again))
+
+
+# Valid prefixes of 0, 1, 63, 64, 65, 361 and 2,048 rows in sets of 2,048
+# rows: at and around the row tiles' edges, the RootSIFT encode's typical
+# count, a full set and a fully weightless one.
+PREFIXES = (0, 1, 63, 64, 65, 361, 2048)
+
+
+def _prefix_sets():
+    desc, _, centers = _margin_batch(len(PREFIXES), 2048, 128, 256, seed=4)
+    mask = torch.zeros(desc.shape[:2])
+    for b, n_valid in enumerate(PREFIXES):
+        mask[b, :n_valid] = 1.0
+    mask[6, 100] = 0.37
+    return desc, mask, centers
+
+
+def test_vlad_kernel_on_valid_prefixes(cuda_device):
+    desc, mask, centers = (t.to(cuda_device) for t in _prefix_sets())
+    out, labels = tagg.vlad_aggregate_batched(desc, mask, centers, return_labels=True)
+    again = tagg.vlad_aggregate_batched(desc, mask, centers, return_labels=True)
+    ref, ref_labels = tagg.vlad_aggregate_reference(desc, mask, centers, return_labels=True)
+    torch.cuda.synchronize()
+    _labels_agree(labels, ref_labels, mask)
+    assert bool((labels[0] == -1).all())
+    assert not out[0].any()
+    _close(out, ref, "sums")
+    assert _same_bits(out, again[0]) and torch.equal(labels, again[1])
+
+
+def test_lloyd_kernel_on_valid_prefixes(cuda_device):
+    desc, mask, centers = _prefix_sets()
+    desc, mask, centers = (t.to(cuda_device) for t in (desc.reshape(-1, 128), mask.reshape(-1),
+                                                        centers))
+    got = tls.lloyd_stats(desc, mask, centers, return_labels=True)
+    again = tls.lloyd_stats(desc, mask, centers, return_labels=True)
+    want = tls.lloyd_stats_reference(desc, mask, centers, return_labels=True)
+    torch.cuda.synchronize()
+    _labels_agree(got[3], want[3], mask)
+    assert bool((got[3][:2048] == -1).all())
+    _close(got[0], want[0], "sums")
+    _close(got[1], want[1], "counts")
+    torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=1e-4)
+    assert all(_same_bits(a, b) for a, b in zip(got, again))
 
 
 @pytest.mark.parametrize("chunk_size", [None, 100])

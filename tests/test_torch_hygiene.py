@@ -159,11 +159,12 @@ def test_conv_probe_patches_lines_that_the_conv_source_has():
 
 
 @pytest.mark.parametrize("source, table", [("sift_window", "SIFT_VARIANTS"),
-                                           ("gmm_stats", "GMM_VARIANTS")])
+                                           ("gmm_stats", "GMM_VARIANTS"),
+                                           ("aggregate", "AGG_VARIANTS")])
 def test_kernel_probe_patches_lines_that_the_sources_have(source, table):
-    """kernel_probe.py builds sift_window.cu and gmm_stats.cu with parts
-    removed by replacing literal lines; each must still be in its source
-    (the probe raises otherwise, and only on the card)."""
+    """kernel_probe.py builds sift_window.cu, gmm_stats.cu and aggregate.cu
+    with parts removed by replacing literal lines; each must still be in its
+    source (the probe raises otherwise, and only on the card)."""
     sys.path.insert(0, str(REPO))
     try:
         import kernel_probe

@@ -119,6 +119,33 @@ def test_plain_aggregate_matches_the_pallas_kernel():
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("case", ["nan_weighted", "nan_weightless", "inf_weightless",
+                                  "inf_weighted"])
+def test_plain_aggregate_carries_nan_and_inf_as_the_pallas_kernel(case):
+    """One NaN or inf in a row of nonzero or zero weight: the one-hot
+    product's 0 * NaN and 0 * inf make column 7 NaN in every cluster (but
+    the inf's own, which is +-inf), in the Pallas kernel and the plain
+    version alike (the rule the CUDA kernel is held to on the card)."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    from pyvisim_tpu.ops.pallas import vlad_aggregate_pallas
+
+    rng = np.random.default_rng(5)
+    desc = rng.normal(size=(196, 514)).astype(np.float32)
+    mask = (rng.random(196) > 0.1).astype(np.float32)
+    centers = rng.normal(size=(8, 514)).astype(np.float32)
+    row = int(np.flatnonzero((mask != 0) == case.endswith("_weighted"))[0])
+    desc[row, 7] = np.inf if case.startswith("inf") else np.nan
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(vlad_aggregate_pallas(desc, mask, centers, block_n=64))
+    got = tagg.vlad_aggregate_reference(_t(desc)[None], _t(mask)[None], _t(centers))[0].numpy()
+    assert np.isnan(want[:, 7]).sum() == len(centers) - (case == "inf_weighted")
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_array_equal(np.isinf(got), np.isinf(want))
+    finite = np.isfinite(want)
+    np.testing.assert_allclose(got[finite], want[finite], rtol=1e-4, atol=1e-4)
+
+
 def test_batched_wrapper_checks_its_inputs():
     desc = torch.zeros(2, 5, 4)
     mask = torch.ones(2, 5)

@@ -77,6 +77,33 @@ def test_lloyd_stats_plain_version_matches_pallas_kernel():
     assert float(inertia) == pytest.approx(float(w_inertia), rel=1e-4)
 
 
+@pytest.mark.parametrize("case", ["nan_weighted", "nan_weightless", "inf_weightless",
+                                  "inf_weighted"])
+def test_lloyd_stats_plain_version_carries_nan_and_inf_as_pallas_kernel(case):
+    """One NaN or inf in a row of nonzero or zero weight: sums NaN in
+    column 5 of every cluster (but the inf's own, which is +-inf) and the
+    inertia NaN, in the Pallas kernel and the plain version alike (the rule
+    the CUDA kernel is held to on the card); counts and the finite sums as
+    in the clean test."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    x, mask, centers = _margin_set(seed=1)
+    row = int(np.flatnonzero((mask != 0) == case.endswith("_weighted"))[3])
+    x[row, 5] = np.inf if case.startswith("inf") else np.nan
+    sums, counts, inertia = lloyd_stats(T(x), T(mask), T(centers))
+    with pltpu.force_tpu_interpret_mode():
+        w_sums, w_counts, w_inertia = (np.asarray(t) for t in
+                                       lloyd_stats_pallas(x, mask, centers, block_n=128))
+    assert np.isnan(w_sums[:, 5]).sum() == len(centers) - (case == "inf_weighted")
+    assert np.isnan(w_inertia)
+    np.testing.assert_array_equal(np.isnan(sums.numpy()), np.isnan(w_sums))
+    np.testing.assert_array_equal(np.isinf(sums.numpy()), np.isinf(w_sums))
+    finite = np.isfinite(w_sums)
+    np.testing.assert_allclose(sums.numpy()[finite], w_sums[finite], rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(counts.numpy(), w_counts, rtol=1e-6)
+    assert np.isnan(float(inertia))
+
+
 def _gmm_state():
     """Clusters whose |mean| / std stays near 4: the covariances are
     ``s2/nk - mean^2``, and a larger ratio leaves them to the summation
