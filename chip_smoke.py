@@ -89,6 +89,29 @@ Phases, each of which raises on a failed check:
    VLAD norms, and encodings at cosine > 0.999 against the float32 trunk's.
    Prints encode img/s, the device graph's and the int8 and bf16 trunks'
    ms, and device profiles by operator.
+8. Serving, on phase 7's encoder: 16 synthetic classes x 13 views at 224^2
+   (``datasets.make_retrieval_corpus``); views 0-7 are encoded through
+   ``io.prefetch_to_device`` in 64-image batches (bit-equal to direct
+   encodes) and expanded (``expand_encodings``, seed 0) to a 6,149 x
+   131,584 gallery; views 8-12 are the 80 queries. Four ``RetrievalIndex``
+   modes, one at a time: float32, int8, and each with a 256-D screen and
+   rerank 128. Gates: the float32 top-5 against a float64 brute force
+   (where the 5th-6th margin exceeds 1e-6) with scores to 1e-5; the int8
+   scan's int32 sums (``torch._int_mm``) bit for bit with exact float64
+   sums at Q=1 and 8; a screened query with rerank >= n equal to its exact
+   counterpart; self-retrieval of the 128 real rows (int8 with the screen:
+   the top-1 scores as the best dequantised row); a duplicated row in
+   ``lax.top_k``'s order; ``add()`` of 2,048 rows across the capacity
+   doubling (8,192 -> 16,384) against a whole build; the int8 index
+   through save and load with codes and scales bit-equal;
+   ``from_encoding_map``, ``build`` and ``generate_encoding_map`` on 16
+   PNG files; kernels 1, 7 and 8 held against their plain versions on the
+   arguments the path gives them at its batch sizes 64 (a gallery batch),
+   80 (the queries) and 1 (``query(encoder, [image])``). Prints query latency at Q=1 and 8 per mode and route (CUDA
+   events and host clock, beside the byte bound), device ms by Q (where
+   the screen stops beating the full scan), recall@5 of int8 + screen
+   against the int8 scan at rerank 16-256, the top-k's cost, and one
+   ``query(encoder, [image])`` end to end.
 
 Each slice resets the kernels' launch counts just before it and reads
 them just after.
@@ -1728,6 +1751,529 @@ def phase_slice4(conv, agg, ext_bf16, centers, images):
         log(json.dumps({"profile_int8": profile_device_graph(graph, top=14)}))
         log(json.dumps({"profile_bf16_trunk": profile_device_graph(
             lambda: ext_bf16._forward(dev_images), top=10)}))
+    return launches, numbers, enc
+
+
+# Phase 8: the serving path at full width. The gallery is the JAX rounds'
+# BASELINE size (6,149 rows, docs/PERF.md:647-648) expanded from real
+# int8-trunk encodings of a synthetic corpus: 16 classes, views 0-7 of each
+# in the gallery and views 8-12 as the 80 queries.
+SERVE_CLASSES, SERVE_VIEWS, SERVE_QUERY_VIEWS = 16, 8, 5
+SERVE_ROWS = 6149
+SERVE_ADD = 2048  # 6,150 + 2,048 rows cross 8,192: the capacity doubles
+SERVE_MODES = {
+    "f32": {},
+    "int8": {"quantize": "int8"},
+    "f32_screen": {"screen_dim": 256, "rerank": 128},
+    "int8_screen": {"quantize": "int8", "screen_dim": 256, "rerank": 128},
+}
+RERANKS = (16, 32, 64, 128, 256)
+# recall@5 of int8 + screen-256 against the int8 scan in the JAX rounds, on
+# their own 6,149-row gallery (docs/PERF.md:772-774): for comparison only.
+JAX_RECALL = {16: 0.64, 32: 0.81, 64: 0.92, 128: 0.99, 256: 1.00}
+SWEEP_Q = (1, 2, 4, 8, 16, 32, 64)
+
+
+def query_chunks(index, vecs: np.ndarray, k: int, chunk: int = 16):
+    """``query_vectors`` in chunks of queries, so a screened query's gather
+    of chunk x rerank full rows stays a few GB."""
+    parts = [index.query_vectors(vecs[i : i + chunk], k) for i in range(0, len(vecs), chunk)]
+    return np.concatenate([p[0] for p in parts]), np.concatenate([p[1] for p in parts])
+
+
+def query_bytes(index, n_queries: int, k: int = 5) -> int:
+    """Bytes one query call must read: each input once (the scanned rows,
+    their scales, the JL projection and screen, the gathered rows)."""
+    n, d = len(index), index.vectors.shape[1]
+    row_bytes = index.vectors.element_size() * d + (4 if index.quantize else 0)
+    r = index._route(n_queries, k)
+    if r is None:
+        return n * row_bytes + n_queries * d * 4
+    return (index._proj.numel() * 4 + n * index.screen_dim * 4
+            + n_queries * r * row_bytes + n_queries * d * 4)
+
+
+def serving_latency(index, vecs: np.ndarray, k: int = 5, reps: int = 20) -> dict:
+    """Device ms of the search (CUDA events, queries already on the card)
+    and host ms of ``query_vectors`` with numpy in and out, beside the byte
+    bound at 3.35 TB/s."""
+    qd = torch.from_numpy(vecs).cuda()
+    device_ms = cuda_ms(lambda: index._query(qd, k), reps=10, rounds=5)
+    index.query_vectors(vecs, k)
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        index.query_vectors(vecs, k)
+        times.append((time.perf_counter() - t0) * 1e3)
+    n_bytes = query_bytes(index, len(vecs), k)
+    return {"route": "exact" if index._route(len(vecs), k) is None else "screened",
+            "device_ms": device_ms, "host_ms": statistics.median(times),
+            "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "bound_mb": n_bytes / 1e6}
+
+
+def vlad_on_path_gate(agg, out, desc, mask, centers) -> dict:
+    """Kernel 1's output from the main path against its plain version on
+    the same arguments: every weighted row's label (from a second call that
+    returns them, not counted) equal to the plain argmin's or, on these
+    real descriptors, within 1e-5 (|x|^2 + |c|^2) of its float64 distance
+    (a near tie); the sums within phase 2a's 1e-4 * max|ref| + 1e-5 of the
+    plain aggregation with the kernel's labels (the plain version itself
+    where no label differs)."""
+    n0 = agg.vlad_aggregate_batched.launches
+    again, labels = agg.vlad_aggregate_batched(desc, mask, centers, return_labels=True)
+    agg.vlad_aggregate_batched.launches = n0
+    ref_labels = agg.vlad_aggregate_reference(desc, mask, centers, return_labels=True)[1]
+    check(torch.equal(out, again), "kernel 1 does not repeat bit for bit on the main path")
+    weighted = mask != 0
+    differ = (labels != ref_labels) & weighted
+    x = desc[differ].double()
+    c_got = centers[labels[differ].long()].double()
+    c_ref = centers[ref_labels[differ].long()].double()
+    gap = ((x - c_got) ** 2).sum(1) - ((x - c_ref) ** 2).sum(1)
+    slack = 1e-5 * ((x**2).sum(1) + (c_got**2).sum(1))
+    check(bool((gap <= slack).all()), f"kernel 1: {int((gap > slack).sum())} weighted rows' "
+          "labels are not the nearest center on the main path")
+    rest = labels[~weighted]
+    check(bool(((rest == -1) | (rest == ref_labels[~weighted])).all()),
+          "kernel 1: a weightless row's label is neither -1 nor the plain argmin")
+    one_hot = F.one_hot(labels.clamp(min=0).long(), centers.shape[0]).to(desc.dtype)
+    one_hot = one_hot * mask[..., None]
+    same_labels = torch.bmm(one_hot.transpose(1, 2), desc) - one_hot.sum(1)[..., None] * centers
+    err = max_err(out, same_labels, f"kernel 1 on the main path, B={desc.shape[0]}")
+    return {"shape": list(desc.shape), "max_abs_err": err, "near_tie_rows": int(differ.sum())}
+
+
+def conv_on_path_gate(conv, name, out, acc, x, w, args, kwargs) -> dict:
+    """Kernel 7 or 8's output from the main path against its plain version
+    on the same arguments, at phase 2e's gates over the whole batch: kernel
+    7 in bf16 within one bf16 step and 99 % exact (float32 within 1e-5 *
+    max|ref|), kernel 8 bit for bit, its int32 sums ``acc`` too."""
+    rec = {"kernel": name, "shape": list(x.shape), "cout": int(w.shape[0])}
+    if name == "conv3x3_relu_maxpool":
+        want = conv.conv3x3_relu_maxpool_reference(x, w, *args)
+        diff = (out.float() - want.float()).abs()
+        rec["max_abs_err"] = float(diff.max())
+        if x.dtype == torch.bfloat16:
+            rec["exact_share"] = float((diff == 0).float().mean())
+            check(bool((diff <= bf16_ulp(want) + 1e-6).all()) and rec["exact_share"] >= 0.99,
+                  f"kernel 7 on the main path: {rec}")
+        else:
+            check(rec["max_abs_err"] <= 1e-5 * float(want.abs().max()),
+                  f"kernel 7 float32 on the main path: {rec}")
+        return rec
+    want, want_acc = conv.conv3x3_q8_reference(x, w, *args, pool=name.endswith("maxpool_q8"),
+                                               return_acc=True, **kwargs)
+    rec["max_abs_err"] = float((out.float() - want.float()).abs().max())
+    check(torch.equal(acc, want_acc), f"kernel 8's int32 accumulators differ on the main path: {rec}")
+    check(torch.equal(out, want), f"kernel 8 differs from its plain version on the main path: {rec}")
+    return rec
+
+
+def on_path_kernel_checks(conv, agg, run, what: str):
+    """``run()``, an encode of the main path, with each call of kernels 1,
+    7 and 8 held against its plain version on the arguments the path gave
+    it (``vlad_on_path_gate``, ``conv_on_path_gate``). Returns what
+    ``run()`` returns and the records."""
+    from pyvisim_tpu_torch.ops import vlad as vlad_ops
+
+    names = ("conv3x3_relu_maxpool", "conv3x3_relu_maxpool_q8", "conv3x3_q8")
+    saved = {name: getattr(conv, name) for name in names}
+    saved_vlad = vlad_ops.vlad_aggregate_batched
+    records = []
+
+    def conv_checked(name):
+        def wrapped(x, w, *args, **kwargs):
+            out = saved[name](x, w, *args, **kwargs)
+            acc = None
+            if name != "conv3x3_relu_maxpool":
+                # Kernel 8's int32 sums, from a call not counted.
+                n0 = wrapped.launches
+                _, acc = saved[name](x, w, *args, return_acc=True, **kwargs)
+                wrapped.launches = n0
+            records.append(conv_on_path_gate(conv, name, out, acc, x, w, args, kwargs))
+            return out
+        # A wrapper counts its launches on the module attribute of its name.
+        wrapped.launches = saved[name].launches
+        return wrapped
+
+    def vlad_checked(desc, mask, centers):
+        out = saved_vlad(desc, mask, centers)
+        records.append({"kernel": "vlad_aggregate",
+                        **vlad_on_path_gate(agg, out, desc, mask, centers)})
+        return out
+
+    try:
+        for name in names:
+            setattr(conv, name, conv_checked(name))
+        vlad_ops.vlad_aggregate_batched = vlad_checked
+        result = run()
+    finally:
+        for name in names:
+            saved[name].launches = getattr(conv, name).launches
+            setattr(conv, name, saved[name])
+        vlad_ops.vlad_aggregate_batched = saved_vlad
+    kinds = {r["kernel"] for r in records}
+    check(kinds == {"vlad_aggregate", *names},
+          f"{what}: the encode did not reach kernels 1, 7 and 8 ({sorted(kinds)})")
+    log(f"serving: kernels on the main path at {what} held against their plain versions: "
+        + json.dumps(records))
+    return result, records
+
+
+def serving_corpus(conv, agg, enc, wrappers):
+    """The corpus encoded on the card: the gallery views through
+    ``prefetch_to_device`` in 64-image batches (bit-equal to direct encodes
+    of the same batches), the query views in one encode. The first direct
+    batch and the queries' encode hold kernels 1, 7 and 8 against their
+    plain versions at their batch sizes (``on_path_kernel_checks``)."""
+    from pyvisim_tpu_torch.datasets import make_retrieval_corpus
+    from pyvisim_tpu_torch.io import prefetch_to_device
+
+    n_views = SERVE_VIEWS + SERVE_QUERY_VIEWS
+    images, labels = make_retrieval_corpus(SERVE_CLASSES, n_views, h=224, w=224)
+    images = np.stack(images)
+    view = np.arange(len(images)) % n_views
+    gal_imgs, gal_labels = images[view < SERVE_VIEWS], labels[view < SERVE_VIEWS]
+    q_imgs = images[view >= SERVE_VIEWS]
+    batches = [gal_imgs[i : i + 64] for i in range(0, len(gal_imgs), 64)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    real = np.concatenate([enc.encode(b) for b in prefetch_to_device(iter(batches))])
+    gallery_s = time.perf_counter() - t0
+    prefetch_vlad = wrappers["vlad"].launches
+    first, checked = on_path_kernel_checks(conv, agg, lambda: enc.encode(batches[0]),
+                                           f"B={len(batches[0])}, a gallery batch")
+    direct = np.concatenate([first] + [enc.encode(b) for b in batches[1:]])
+    check(np.array_equal(real, direct),
+          "encodings through prefetch_to_device differ from direct encodes")
+    queries, checked_q = on_path_kernel_checks(conv, agg, lambda: enc.encode(q_imgs),
+                                               f"B={len(q_imgs)}, the queries")
+    check(real.shape == (len(gal_imgs), K * D) and queries.shape == (len(q_imgs), K * D),
+          f"corpus encodings {real.shape}, {queries.shape}")
+    check(bool(np.isfinite(real).all() and np.isfinite(queries).all()), "non-finite encodings")
+    log(f"serving: {len(gal_imgs)} gallery images encoded through prefetch_to_device in "
+        f"{gallery_s * 1e3:.1f} ms ({prefetch_vlad} VLAD launches), bit-equal to direct encodes")
+    return gal_imgs, gal_labels, q_imgs, real, queries, gallery_s, checked + checked_q
+
+
+def float64_top(gallery: np.ndarray, queries: np.ndarray):
+    """Cosine top list of every query in float64 on the card."""
+    g = torch.from_numpy(gallery).cuda().double()
+    g /= g.norm(dim=1, keepdim=True)
+    q = torch.from_numpy(queries).cuda().double()
+    q /= q.norm(dim=1, keepdim=True)
+    values, index = torch.sort(q @ g.T, dim=1, descending=True, stable=True)
+    return values[:, :6].cpu().numpy(), index[:, :6].cpu().numpy()
+
+
+def serving_gates(name, index, gallery, labels, queries, ref, exact_top):
+    """Phase 8's gates on one index; raise on failure."""
+    from pyvisim_tpu_torch.index import _quantize_rows, int8_accumulators, int8_accumulators_plain
+
+    n = len(index)
+    gates = {}
+    if name == "f32":
+        ref_vals, ref_idx = ref
+        s, i = index.query_vectors(queries, 5)
+        # The top-5 as a set, where the 5th-6th margin is clear of float32's
+        # rounding; the order within it may differ at closer margins.
+        clear = ref_vals[:, 4] - ref_vals[:, 5] > 1e-6
+        check(np.array_equal(np.sort(i[clear]), np.sort(ref_idx[clear, :5])),
+              "exact f32 top-5 differs from the float64 brute force")
+        err = float(np.abs(s - ref_vals[:, :5]).max())
+        check(err <= 1e-5, f"exact f32 scores off the float64 ones by {err}")
+        gates["f64_queries_clear_of_ties"] = int(clear.sum())
+        gates["f64_max_score_err"] = err
+    if name == "int8":
+        codes = index._scanned_codes()
+        check(codes.shape[0] % 8 == 0 and codes.shape[1] % 8 == 0,
+              "the int8 scan does not meet torch._int_mm's shape rules")
+        qd = torch.from_numpy(queries[:8]).cuda()
+        qn = qd / torch.clamp(torch.linalg.vector_norm(qd, dim=1, keepdim=True), min=1e-12)
+        for q in (1, 8):
+            q8, _ = _quantize_rows(qn[:q])
+            check(torch.equal(int8_accumulators(q8, codes), int8_accumulators_plain(q8, codes)),
+                  f"int8 accumulators at Q={q} differ from the exact float64 sums")
+        gates["int32_accumulators_bit_equal_q"] = [1, 8]
+    if index.screen_dim is not None:
+        saved = index.rerank, index.auto_exact
+        index.rerank, index.auto_exact = n, False
+        s, i = query_chunks(index, queries[:2], 5, chunk=1)
+        index.rerank, index.auto_exact = saved
+        if index.quantize is None:
+            want_s, want_i = exact_top["f32"]
+            want_s, want_i = want_s[:2], want_i[:2]
+        else:
+            # Its exact counterpart: the float32 cosine against the
+            # dequantised rows, which is what the screened route rescores.
+            qd = torch.from_numpy(queries[:2]).cuda()
+            qn = qd / torch.clamp(torch.linalg.vector_norm(qd, dim=1, keepdim=True), min=1e-12)
+            deq = index.vectors[:n].to(torch.float32) * index.scales[:n]
+            want_s, want_i = (t.cpu().numpy() for t in torch.sort(
+                qn @ deq.T, dim=1, descending=True, stable=True))
+            want_s, want_i = want_s[:, :5], want_i[:, :5]
+            del deq
+        check(np.array_equal(i, want_i), f"{name}: rerank >= n differs from the exact scan")
+        err = float(np.abs(s - want_s).max())
+        check(err <= 1e-6, f"{name}: rerank >= n scores off the exact scan's by {err}")
+        gates["full_rerank_equals_exact_max_err"] = err
+    # Self-retrieval of the real rows, through the route under test.
+    saved = index.auto_exact
+    index.auto_exact = False
+    s, top = query_chunks(index, gallery[:128], 2)
+    index.auto_exact = saved
+    missed = np.flatnonzero(top[:, 0] != np.arange(128))
+    gates["self_retrieval_hits_of_128"] = 128 - len(missed)
+    if index.quantize is None or index.screen_dim is None:
+        check(len(missed) == 0, f"{name}: self-retrieval missed rows {missed.tolist()}")
+        return gates
+    # The int8 screen rescores the float32 query against dequantised rows,
+    # whose norms are 1 only up to the quantisation error (~1e-4 here), so
+    # a near-duplicate within that margin can outscore the row itself, in
+    # the JAX package too (tests/test_torch_index.py). The gate: the top-1
+    # scores as high as the best dequantised row of the whole gallery.
+    qd = torch.from_numpy(gallery[:128]).cuda()
+    qn = qd / torch.clamp(torch.linalg.vector_norm(qd, dim=1, keepdim=True), min=1e-12)
+    deq = index.vectors[:n].to(torch.float32) * index.scales[:n]
+    best = (qn @ deq.T).max(dim=1).values.cpu().numpy()
+    del deq
+    err = float(np.abs(s[:, 0] - best).max())
+    gates["top1_vs_best_dequantised_max_err"] = err
+    log(f"{name}: self-retrieval {128 - len(missed)}/128; the other rows' top-1 is a "
+        f"near-duplicate; top-1 against the best dequantised row max|diff| {err:.2e}")
+    check(err <= 1e-6, f"{name}: the top-1 scores {err} below the best dequantised row")
+    return gates
+
+
+def serving_ties_and_add(name, index, gallery, labels, more, more_labels, kw):
+    """A duplicated row ranks in lax.top_k's order; then (f32 and the
+    production int8 + screen) add() across the capacity doubling answers as
+    an index built at once."""
+    from pyvisim_tpu_torch.index import RetrievalIndex
+
+    n = len(index)
+    index.add(gallery[5:6], ["dup/5"], labels[5:6])
+    saved = index.auto_exact
+    index.auto_exact = False
+    s, i = index.query_vectors(gallery[5:6], 3)
+    index.auto_exact = saved
+    # A float32 product may round the two copies apart by their positions
+    # in it. Where they score alike, lax.top_k's order puts first the lower
+    # index (a full scan) or the better screen rank (a screened query); the
+    # int8 scan's int32 sums tie exactly.
+    tied = bool(s[0, 0] == s[0, 1])
+    first = 5
+    if index.screen_dim is not None:
+        # The screen scores as the screened route computes them.
+        q = torch.from_numpy(gallery[5:6]).cuda()
+        qn = q / torch.clamp(torch.linalg.vector_norm(q, dim=1, keepdim=True), min=1e-12)
+        sims = ((qn @ index._proj) @ index._screen[: n + 1].T)[0]
+        first = 5 if sims[5] >= sims[n] else n
+    check(sorted(i[0, :2]) == [5, n] and (not tied or i[0, 0] == first)
+          and (tied or name != "int8"),
+          f"{name}: a duplicated row ranks {i[0].tolist()} with scores {s[0].tolist()}")
+    if name not in ("f32", "int8_screen"):
+        return {"duplicate_scores_tie": tied}
+    cap0 = index.vectors.shape[0]
+    t0 = time.perf_counter()
+    index.add(more, [f"more/{j}" for j in range(len(more))], more_labels)
+    torch.cuda.synchronize()
+    add_s = time.perf_counter() - t0
+    check(index.vectors.shape[0] == 2 * cap0 and len(index) == n + 1 + len(more),
+          f"{name}: add() left capacity {index.vectors.shape[0]} and {len(index)} rows")
+    whole_vecs = np.concatenate([gallery, gallery[5:6], more])
+    probe = np.concatenate([gallery[:4], more[:4]])
+    got = query_chunks(index, probe, 5)
+    whole = RetrievalIndex(whole_vecs, [str(j) for j in range(len(whole_vecs))], **kw)
+    want = query_chunks(whole, probe, 5)
+    check(np.array_equal(got[1], want[1]), f"{name}: add() top-5 differs from a whole build")
+    err = float(np.abs(got[0] - want[0]).max())
+    check(err <= 1e-6, f"{name}: add() scores off a whole build's by {err}")
+    return {"duplicate_scores_tie": tied, "add_s": add_s, "capacity": [cap0, 2 * cap0],
+            "max_score_err": err}
+
+
+def serving_save_load(index) -> dict:
+    import tempfile
+
+    from pyvisim_tpu_torch.index import RetrievalIndex
+
+    n = len(index)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/int8.npz"
+        t0 = time.perf_counter()
+        index.save(path)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = RetrievalIndex.load(path)
+        load_s = time.perf_counter() - t0
+    check(back.quantize == "int8" and len(back) == n, "the int8 index did not load back")
+    check(torch.equal(back.vectors[:n], index.vectors[:n])
+          and torch.equal(back.scales[:n], index.scales[:n]),
+          "the int8 index's codes or scales changed through save and load")
+    del back
+    return {"save_s": save_s, "load_s": load_s}
+
+
+def serving_from_files(enc, gal_imgs, real) -> dict:
+    """``RetrievalIndex.build``, ``generate_encoding_map`` and
+    ``from_encoding_map`` on 16 gallery images written as PNG, against the
+    index of their encodings; ``from_encoding_map`` on the real rows."""
+    import tempfile
+
+    import cv2
+
+    from pyvisim_tpu_torch.index import RetrievalIndex
+    from pyvisim_tpu_torch.io import native_loader_available
+
+    probe = real[:8] * 1.01
+    by_map = RetrievalIndex.from_encoding_map({f"img/{i}": v for i, v in enumerate(real)})
+    direct = RetrievalIndex(real, [f"img/{i}" for i in range(len(real))])
+    a, b = by_map.query_vectors(probe, 5), direct.query_vectors(probe, 5)
+    check(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1]),
+          "from_encoding_map answers differently from the index of the same array")
+    with tempfile.TemporaryDirectory() as tmp:
+        files = []
+        for i, img in enumerate(gal_imgs[:16]):
+            files.append(f"{tmp}/g{i:02d}.png")
+            cv2.imwrite(files[-1], cv2.cvtColor(img, cv2.COLOR_RGB2BGR))
+        built = RetrievalIndex.build(enc, files, quantize="int8")
+        emap = enc.generate_encoding_map(files, batch_size=16)
+    want = RetrievalIndex(enc.encode(gal_imgs[:16]), files, quantize="int8")
+    by_file_map = RetrievalIndex.from_encoding_map(emap, quantize="int8")
+    for idx in (built, by_file_map):
+        got = idx.query_vectors(real[:16], 3)
+        ref = want.query_vectors(real[:16], 3)
+        check(np.array_equal(got[1], ref[1]) and np.array_equal(got[0], ref[0]),
+              "an index built from image files answers differently")
+    check(list(emap) == files, "generate_encoding_map lost the file order")
+    return {"native_jpeg_loader": native_loader_available(), "png_files": len(files)}
+
+
+def phase_serving(conv, agg, enc):
+    """Phase 8: the serving path at full width through the public entry
+    points (gallery encode, four RetrievalIndex modes, queries)."""
+    from pyvisim_tpu_torch.datasets import expand_encodings
+    from pyvisim_tpu_torch.index import RetrievalIndex, _top_k
+
+    t_phase = time.perf_counter()
+    wrappers = {"k7": conv.conv3x3_relu_maxpool, "k8_pooled": conv.conv3x3_relu_maxpool_q8,
+                "k8_unpooled": conv.conv3x3_q8, "vlad": agg.vlad_aggregate_batched}
+    for w in wrappers.values():
+        w.launches = 0
+    gal_imgs, gal_labels, q_imgs, real, queries, gallery_s, checked = serving_corpus(
+        conv, agg, enc, wrappers)
+    encodes = 2 * len(gal_imgs) // 64 + 1
+
+    t0 = time.perf_counter()
+    gallery, labels = expand_encodings(real, gal_labels, SERVE_ROWS, seed=0)
+    more, more_labels = (a[len(real):] for a in
+                         expand_encodings(real, gal_labels, len(real) + SERVE_ADD, seed=1))
+    expand_s = time.perf_counter() - t0
+    paths = [f"gallery/{i:05d}" for i in range(SERVE_ROWS)]
+    ref = float64_top(gallery, queries)
+    log(f"serving: gallery {gallery.shape} expanded in {expand_s:.1f} s; "
+        f"5th-6th float64 margin median {np.median(ref[0][:, 4] - ref[0][:, 5]):.2e}")
+
+    numbers = {"gallery_rows": SERVE_ROWS, "dim": int(gallery.shape[1]),
+               "gallery_encode_ms_128_prefetched": gallery_s * 1e3, "expand_s": expand_s,
+               "modes": {}}
+    exact_top, exact_ms = {}, {}
+    for name, kw in SERVE_MODES.items():
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        index = RetrievalIndex(gallery, paths, labels, **kw)
+        torch.cuda.synchronize()
+        rec = {"build_s": time.perf_counter() - t0,
+               "gallery_gb": (index.vectors[:SERVE_ROWS].numel()
+                              * index.vectors.element_size()) / 1e9,
+               "capacity": index.vectors.shape[0]}
+        if index.screen_dim is None:
+            exact_top[name] = index.query_vectors(queries, 5)
+        rec["gates"] = serving_gates(name, index, gallery, labels, queries, ref, exact_top)
+        for q in (1, 8):
+            routes = [("", kw.get("auto_exact", True))]
+            if index.screen_dim is not None:
+                routes = [("", True), ("_pinned", False)]
+            for suffix, auto in routes:
+                index.auto_exact = auto
+                rec[f"q{q}{suffix}"] = serving_latency(index, queries[:q])
+            index.auto_exact = True
+        # Device ms by Q: the exact scans' and the screened route's, for the
+        # crossover against the JAX package's Q * rerank * 15 >= n rule.
+        index.auto_exact = False
+        sweep = {}
+        for q in SWEEP_Q:
+            qd = torch.from_numpy(queries[:q]).cuda()
+            sweep[q] = cuda_ms(lambda: index._query(qd, 5), reps=5, rounds=3)
+        index.auto_exact = True
+        rec["device_ms_by_q"] = sweep
+        if index.screen_dim is None:
+            exact_ms[name] = sweep
+        else:
+            exact = exact_ms["int8" if index.quantize else "f32"]
+            slower = [q for q in SWEEP_Q if sweep[q] >= exact[q]]
+            rec["screen_stops_winning_at_q"] = slower[0] if slower else None
+            rec["jax_rule_exact_from_q"] = -(-SERVE_ROWS // (128 * 15))
+        if name == "int8":
+            rec["save_load"] = serving_save_load(index)
+        if name == "int8_screen":
+            recall = {}
+            index.auto_exact = False
+            for r in RERANKS:
+                index.rerank = r
+                _, got = query_chunks(index, queries, 5)
+                recall[r] = float(np.mean([len(set(a) & set(b)) / 5
+                                           for a, b in zip(got, exact_top["int8"][1])]))
+            index.rerank, index.auto_exact = 128, True
+            rec["recall_at_5_vs_int8_exact"] = recall
+            rec["jax_recall_at_5"] = JAX_RECALL
+            log("serving: recall@5 of int8 + screen-256 against the int8 scan by rerank: "
+                + ", ".join(f"{r}: {recall[r]:.4f} (JAX {JAX_RECALL[r]:.2f})" for r in RERANKS))
+            # The first call, a warm-up, holds the kernels at B=1.
+            _, checked_b1 = on_path_kernel_checks(
+                conv, agg, lambda: index.query(enc, [q_imgs[0]], k=5), "B=1, a query image")
+            checked += checked_b1
+            times = []
+            for j in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = index.query(enc, [q_imgs[j]], k=5)
+                times.append((time.perf_counter() - t0) * 1e3)
+                check(len(res) == 1 and len(res[0]) == 5, f"query(encoder, [image]) gave {res}")
+            encodes += 6
+            rec["query_encoder_image_e2e_ms"] = statistics.median(times)
+        rec["ties_and_add"] = serving_ties_and_add(name, index, gallery, labels, more,
+                                                   more_labels, kw)
+        del index
+        log(json.dumps({f"serving_{name}": rec}))
+        numbers["modes"][name] = rec
+    torch.cuda.empty_cache()
+    sims = torch.randn((8, SERVE_ROWS), device="cuda")
+    numbers["top_k_ms"] = {
+        "stable_sort_q1": cuda_ms(lambda: _top_k(sims[:1], 5)),
+        "stable_sort_q8": cuda_ms(lambda: _top_k(sims, 5)),
+        "torch_topk_q1": cuda_ms(lambda: torch.topk(sims[:1], 5)),
+        "torch_topk_q8": cuda_ms(lambda: torch.topk(sims, 5)),
+        "stable_sort_q8_r128": cuda_ms(lambda: _top_k(sims[:, :128], 5)),
+    }
+    numbers["files"] = serving_from_files(enc, gal_imgs, real)
+    encodes += 3  # build, generate_encoding_map and the direct encode of 16 images
+    launches = {name: w.launches for name, w in wrappers.items()}
+    check(launches["vlad"] == encodes,
+          f"phase 8 ran {launches['vlad']} VLAD launches for {encodes} encodes")
+    check(all(launches.values()), f"phase 8 did not launch every kernel: {launches}")
+    numbers["launches"] = launches
+    numbers["on_path_max_abs_err"] = {
+        name: max(r["max_abs_err"] for r in checked if r["kernel"] in names)
+        for name, names in (("vlad_aggregate", ("vlad_aggregate",)),
+                            ("conv3x3_relu_maxpool", ("conv3x3_relu_maxpool",)),
+                            ("conv3x3_relu_maxpool_q8", ("conv3x3_relu_maxpool_q8", "conv3x3_q8")))}
+    numbers["on_path_batches"] = sorted({r["shape"][0] for r in checked})
+    numbers["on_path_near_tie_rows"] = sum(r.get("near_tie_rows", 0) for r in checked)
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    log(json.dumps({"serving": {k: v for k, v in numbers.items() if k != "modes"}}))
     return launches, numbers
 
 
@@ -1772,7 +2318,7 @@ def main() -> int:
         rec["launches_per_vlad_encode_of_64"] = numbers3["launches_per_vlad_encode_of_64"][rec["name"]]
     kernel["launches_slice3"] = launches3["vlad"]
     gmm_kernel["launches_slice3"] = launches3["gmm_stats"]
-    launches4, numbers4 = phase_slice4(conv, agg, ext, centers, images)
+    launches4, numbers4, enc8 = phase_slice4(conv, agg, ext, centers, images)
     k7, k8 = conv_kernels
     per_encode = numbers4["launches_per_encode_of_128"]
     k7["launches"] = launches4["k7"]
@@ -1781,6 +2327,13 @@ def main() -> int:
     k8["launches_pooled"], k8["launches_unpooled"] = launches4["k8_pooled"], launches4["k8_unpooled"]
     k8["launches_per_encode_of_128"] = per_encode["k8_pooled"] + per_encode["k8_unpooled"]
     kernel["launches_slice4"] = launches4["vlad"]
+    launches8, numbers8 = phase_serving(conv, agg, enc8)
+    for rec in (kernel, k7, k8):
+        rec["max_abs_err_serving_path"] = numbers8["on_path_max_abs_err"][rec["name"]]
+        rec["serving_path_batches_checked"] = numbers8["on_path_batches"]
+    kernel["launches_serving"] = launches8["vlad"]
+    k7["launches_serving"] = launches8["k7"]
+    k8["launches_serving"] = launches8["k8_pooled"] + launches8["k8_unpooled"]
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [kernel, gmm_kernel, lloyd_kernel, *sift_kernels, k7, k8]}))
     print(json.dumps({

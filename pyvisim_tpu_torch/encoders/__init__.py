@@ -1,5 +1,5 @@
 """Encoder API (port of ``pyvisim_tpu/encoders``)."""
-from ._base_encoder import GMMWeights, ImageEncoderBase, KMeansWeights
+from ._base_encoder import GMMWeights, ImageEncoderBase, KMeansWeights, load_encoding_map
 from .fisher_vector import FisherVectorEncoder
 from .pipeline import Pipeline
 from .vlad import VLADEncoder
@@ -11,4 +11,5 @@ __all__ = [
     "KMeansWeights",
     "GMMWeights",
     "ImageEncoderBase",
+    "load_encoding_map",
 ]

@@ -5,13 +5,16 @@ codebooks of tensors (``ops/codebooks.py``) on their device, ``encode``
 runs extract -> PCA -> aggregate -> normalise on the whole batch at once,
 and ``learn`` trains the PCA and the K-Means or GMM vocabulary on the
 device. Extractors with a device-resident variant (SIFT/RootSIFT) hand
-their descriptors to the encode core on the device. The multi-device
-paths and the encoding maps come with later slices.
+their descriptors to the encode core on the device. ``generate_encoding_map``
+decodes image files on a prefetch thread and encodes them in batches, into a
+``{path: vector}`` dict or an HDF5 file. The multi-device paths come with a
+later slice.
 """
 from __future__ import annotations
 
 import abc
 import functools
+import os
 import warnings
 from collections.abc import Iterator, MutableSequence
 from enum import Enum
@@ -390,14 +393,14 @@ class ImageEncoderBase(SimilarityMetric):
         ``pca`` and their aggregation."""
         raise NotImplementedError
 
-    def encode(self, images: Iterable[np.ndarray] | np.ndarray) -> np.ndarray:
+    def encode(self, images: Iterable[np.ndarray] | np.ndarray | torch.Tensor) -> np.ndarray:
         """Encode one or more images into vectors, as one device batch.
 
-        Returns ``(B, dim)`` when ``flatten`` else the per-image matrices
-        stacked along axis 0.
+        ``images``: uint8 HWC numpy images, or a ``(B, H, W, 3)`` tensor
+        batch (e.g. from ``io.prefetch_to_device``) where the extractor
+        takes one (``DeepConvFeature``). Returns ``(B, dim)`` when
+        ``flatten`` else the per-image matrices stacked along axis 0.
         """
-        if torch.is_tensor(images):
-            raise RuntimeError("Torch images are not supported yet.")
         if self._clustering_model is None:
             raise RuntimeError(
                 "No clustering model set. Pass weights= or clustering_model=."
@@ -501,6 +504,28 @@ class ImageEncoderBase(SimilarityMetric):
         model, _ = fit(flat, n_clusters, mask=flat_mask, device=self.device, **kwargs)
         self._clustering_model = model
 
+    @_tupleize_first_arg
+    def generate_encoding_map(
+        self,
+        image_paths: Iterable[str],
+        /,
+        batch_size: int = 64,
+        save_path: str | None = None,
+    ) -> dict[str, np.ndarray] | None:
+        """``{image_path: encoded_vector}`` for a collection of files.
+
+        Images are decoded on the host (native loader where it builds, else
+        OpenCV) on a prefetch thread and encoded in device batches; each
+        batch's results come back to host memory, so a gallery pins no
+        device memory.
+
+        :param save_path: optional ``.h5`` file: each batch is appended to
+            it instead of accumulating in RAM, and the method returns
+            ``None``. Reload with :func:`load_encoding_map` (flat
+            ``vectors``/``paths`` datasets, appendable).
+        """
+        return _encode_paths_to_map(self.encode, image_paths, batch_size, save_path)
+
     def similarity_score(
         self,
         images1: Iterable[np.ndarray] | np.ndarray,
@@ -525,3 +550,72 @@ class ImageEncoderBase(SimilarityMetric):
             f"Power Norm Weight={self.power_norm_weight}, \n"
             f"Norm Order={self.norm_order})"
         )
+
+
+def _encode_paths_to_map(
+    encode_fn: Callable,
+    image_paths: Iterable[str],
+    batch_size: int,
+    save_path: str | None,
+) -> dict[str, np.ndarray] | None:
+    """Shared engine of ``generate_encoding_map``: decode on the host, encode
+    in device batches brought back to host numpy, and either build a
+    ``{path: vector}`` dict or append to flat ``vectors`` / ``paths`` HDF5
+    datasets in ``save_path`` (then return None)."""
+    from ..io import PrefetchIterator, imread_rgb
+
+    paths = list(image_paths)
+    h5 = None
+    vec_ds = path_ds = None
+    if save_path is not None:
+        if not paths:
+            # The datasets are created at the first batch; an empty input
+            # would write a file that fails to load.
+            raise ValueError(
+                "generate_encoding_map(save_path=...) needs at least one image path"
+            )
+        import h5py
+
+        h5 = h5py.File(save_path, "w")
+    result: dict[str, np.ndarray] = {}
+
+    def decoded_chunks():
+        for start in range(0, len(paths), batch_size):
+            chunk = paths[start : start + batch_size]
+            yield chunk, [imread_rgb(p) for p in chunk]
+
+    try:
+        # Batch i+1 decodes on the producer thread while batch i encodes
+        # (the native and OpenCV decoders release the GIL).
+        for chunk, imgs in PrefetchIterator(decoded_chunks(), depth=2, to_device=False):
+            vecs = np.asarray(encode_fn(imgs))
+            if h5 is not None:
+                if vec_ds is None:
+                    vec_ds = h5.create_dataset(
+                        "vectors", shape=(0, vecs.shape[1]),
+                        maxshape=(None, vecs.shape[1]), dtype=vecs.dtype, chunks=True,
+                    )
+                    path_ds = h5.create_dataset(
+                        "paths", shape=(0,), maxshape=(None,), dtype=h5py.string_dtype(),
+                    )
+                n0 = vec_ds.shape[0]
+                vec_ds.resize(n0 + len(chunk), axis=0)
+                vec_ds[n0:] = vecs[: len(chunk)]
+                path_ds.resize(n0 + len(chunk), axis=0)
+                path_ds[n0:] = chunk
+            else:
+                for p, v in zip(chunk, vecs):
+                    result[p] = v
+    finally:
+        if h5 is not None:
+            h5.close()
+    return None if save_path is not None else result
+
+
+def load_encoding_map(path: str | os.PathLike) -> dict[str, np.ndarray]:
+    """Load a ``{image_path: vector}`` map written by
+    ``generate_encoding_map(..., save_path=...)`` in either stack."""
+    from ..eval import _gallery
+
+    paths, vectors = _gallery(os.fspath(path))
+    return dict(zip(paths, vectors))

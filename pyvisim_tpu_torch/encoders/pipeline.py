@@ -16,7 +16,8 @@ import torch
 from .._base_classes import SimilarityMetric
 from .._config import get_logger
 from .._utils import cosine_similarity
-from ._base_encoder import ImageEncoderBase, check_desired_output, extract_for_encoding
+from ._base_encoder import (ImageEncoderBase, _encode_paths_to_map, check_desired_output,
+                            extract_for_encoding)
 
 __all__ = ["Pipeline"]
 
@@ -52,14 +53,14 @@ class Pipeline(SimilarityMetric):
                     f"not {type(encoder)}"
                 )
 
-    def encode(self, images: Iterable[np.ndarray] | np.ndarray) -> np.ndarray:
+    def encode(self, images: Iterable[np.ndarray] | np.ndarray | torch.Tensor) -> np.ndarray:
         """Encode images with every encoder and hstack the results, with one
-        extraction pass per distinct extractor instance."""
-        if torch.is_tensor(images):
-            raise RuntimeError("Torch images are not supported yet.")
+        extraction pass per distinct extractor instance; ``images`` as for
+        ``ImageEncoderBase.encode``."""
         if isinstance(images, np.ndarray) and images.ndim == 3:
             images = [images]
-        images = list(images) if not isinstance(images, np.ndarray) else images
+        if not isinstance(images, (np.ndarray, torch.Tensor)):
+            images = list(images)
 
         features: dict[int, tuple] = {}
         for enc in self.encoders:
@@ -77,6 +78,17 @@ class Pipeline(SimilarityMetric):
             finally:
                 enc.flatten = saved_flatten
         return np.hstack(all_encodings)
+
+    def generate_encoding_map(
+        self,
+        image_paths: Iterable[str],
+        batch_size: int = 64,
+        save_path: str | None = None,
+    ) -> dict[str, np.ndarray] | None:
+        """``{path: concatenated_vector}``, decoded on the host and encoded in
+        device batches; ``save_path`` appends to HDF5 as
+        ``ImageEncoderBase.generate_encoding_map`` does."""
+        return _encode_paths_to_map(self.encode, image_paths, batch_size, save_path)
 
     @property
     def similarity_func(self):

@@ -2,8 +2,9 @@
 
 Port of ``pyvisim_tpu/features/_features.py``. ``SIFT``/``RootSIFT`` run
 the batched detect-and-describe of ``ops/sift.py`` with a fixed keypoint
-budget and masks; the JAX package's OpenCV route (``backend="opencv"``) is
-not ported. ``DeepConvFeature`` is a
+budget and masks (``backend="torch"``), or OpenCV's ``detectAndCompute``
+image by image on the host (``backend="opencv"``, the JAX package's golden
+route). ``DeepConvFeature`` is a
 VGG trunk (``models/vgg.py``) whose chosen conv map is flattened into
 descriptors, with a batched device path. The multi-device (mesh) SIFT
 path is not ported.
@@ -70,13 +71,14 @@ def _to_gray_u8(image: np.ndarray) -> np.ndarray:
 class SIFT(FeatureExtractorBase):
     """Scale-Invariant Feature Transform extractor, 128-D descriptors.
 
-    Runs the batched pipeline of ``ops/sift.py`` on ``device`` with a
-    static per-image keypoint budget.
-
-    :param backend: "torch", the only one (OpenCV's route is not ported).
-    :param max_keypoints: static keypoint budget N_max.
-    :param process_size: static letterbox resolution.
-    :param device: where SIFT runs; None means CUDA.
+    :param backend: "torch" runs the batched pipeline of ``ops/sift.py``
+        on ``device`` with a static per-image keypoint budget; "opencv"
+        runs ``cv2.SIFT.create().detectAndCompute`` per image on the host,
+        with no budget (the JAX package's golden route).
+    :param max_keypoints: static keypoint budget N_max of the torch backend.
+    :param process_size: static letterbox resolution of the torch backend.
+    :param device: where SIFT runs (the torch backend) and where encoders
+        built on this extractor run; None means CUDA.
     """
 
     def __init__(
@@ -87,8 +89,8 @@ class SIFT(FeatureExtractorBase):
         device=None,
     ):
         super().__init__()
-        if backend != "torch":
-            raise ValueError(f"Unknown SIFT backend: {backend!r} (the port has only 'torch')")
+        if backend not in ("torch", "opencv"):
+            raise ValueError(f"Unknown SIFT backend: {backend!r}")
         self.device = resolve_device(device)
         self._output_dim = 128
         self.backend = backend
@@ -102,7 +104,15 @@ class SIFT(FeatureExtractorBase):
 
     @property
     def descriptor_budget(self) -> int | None:
-        return self.max_keypoints
+        return self.max_keypoints if self.backend == "torch" else None
+
+    def _opencv_descriptors(self, image: np.ndarray) -> np.ndarray | None:
+        import cv2
+
+        _, descriptors = cv2.SIFT.create().detectAndCompute(image.astype(np.uint8), None)
+        if descriptors is not None and self._root:
+            descriptors = np.sqrt(descriptors / (descriptors.sum(axis=1, keepdims=True) + 1e-7))
+        return descriptors
 
     @property
     def _sift_cfg(self):
@@ -112,6 +122,8 @@ class SIFT(FeatureExtractorBase):
     @_check_output_shape
     def __call__(self, image: np.ndarray) -> np.ndarray:
         super().__call__(image)
+        if self.backend == "opencv":
+            return self._opencv_descriptors(image)
         gray = _to_gray_u8(image).astype(np.float32) / 255.0
         desc, mask = sift_ops.sift_single(
             gray, max_keypoints=self.max_keypoints, root_sift=self._root, cfg=self._sift_cfg,
@@ -126,7 +138,10 @@ class SIFT(FeatureExtractorBase):
 
     def extract_batch(self, images):
         """``(desc (B, N, 128), mask (B, N))`` as numpy arrays, in device
-        calls of ``PYVISIM_SIFT_DEVICE_BATCH`` (default 16) images."""
+        calls of ``PYVISIM_SIFT_DEVICE_BATCH`` (default 16) images (the
+        opencv backend: image by image, padded to the most descriptors)."""
+        if self.backend == "opencv":
+            return super().extract_batch(images)
         return sift_ops.sift_batch(
             self._grays(images), max_keypoints=self.max_keypoints, root_sift=self._root,
             cfg=self._sift_cfg, run_on=self.device,
@@ -136,7 +151,10 @@ class SIFT(FeatureExtractorBase):
         """As ``extract_batch``, but the results stay on the device as
         tensors (f32, root-SIFT applied there), so an encoder that follows
         on the device needs no copies. More than 16 device calls' worth of
-        images take ``extract_batch``, so a gallery pins no device memory."""
+        images take ``extract_batch``, so a gallery pins no device memory;
+        the opencv backend always does."""
+        if self.backend == "opencv":
+            return self.extract_batch(images)
         if not isinstance(images, np.ndarray):
             images = list(images)
         cap = 16 * int(os.environ.get("PYVISIM_SIFT_DEVICE_BATCH", "16"))
@@ -381,7 +399,8 @@ class DeepConvFeature(FeatureExtractorBase):
         return desc[0].to(torch.float32).cpu().numpy()
 
     def extract_batch(self, images):
-        """``(desc (B, N, D), mask (B, N))`` for a batch or list of images.
+        """``(desc (B, N, D), mask (B, N))`` for a batch or list of images,
+        or a ``(B, H, W, 3)`` tensor.
 
         A uniform batch runs as one device batch, a ragged list is resized
         image by image and then runs as one. More than
@@ -389,6 +408,10 @@ class DeepConvFeature(FeatureExtractorBase):
         that size, gathered on the host as numpy, so an unbounded gallery
         pins no device memory.
         """
+        if torch.is_tensor(images):
+            # A tensor batch (e.g. from io.prefetch_to_device) runs as it is.
+            desc = self._forward((images[None] if images.ndim == 3 else images).to(self.device))
+            return desc, torch.ones(desc.shape[:2], dtype=torch.float32, device=desc.device)
         if isinstance(images, np.ndarray) and images.ndim == 3:
             images = [images]
         if not isinstance(images, np.ndarray):

@@ -11,6 +11,8 @@ import torch
 
 import numpy as np
 
+from pyvisim_tpu_torch import index as tindex
+from pyvisim_tpu_torch import io as tio
 from pyvisim_tpu_torch.models import QuantConv
 from pyvisim_tpu_torch.models import vgg as tvgg
 from pyvisim_tpu_torch.ops import fisher as tfisher
@@ -945,3 +947,112 @@ def test_int8_trunk_on_card_matches_cpu(cuda_device, dtype):
     assert [a - c for a, c in zip(after, counts)] == [3, 1, 1]
     cos = torch.nn.functional.cosine_similarity(got.flatten(1), want.flatten(1))
     assert bool((cos > (0.9999 if dtype == torch.float32 else 0.999)).all()), cos
+
+
+# -- the serving index: each route on the card against the index on the CPU --
+
+INDEX_MODES = {
+    "f32": {},
+    "int8": {"quantize": "int8"},
+    "screened": {"screen_dim": 6, "rerank": 24, "auto_exact": False},
+    "int8_screened": {"quantize": "int8", "screen_dim": 6, "rerank": 24, "auto_exact": False},
+}
+# (n, D): n no multiple of 8; D = 60 no multiple of 8, which takes the int8
+# scan off torch._int_mm; 29 rows scan 32, the whole capacity.
+INDEX_SHAPES = [(203, 64), (203, 60), (1000, 136), (29, 8)]
+
+
+def _index_on_both(vecs, **kw):
+    paths = [str(i) for i in range(len(vecs))]
+    return (tindex.RetrievalIndex(vecs, paths, device="cuda", **kw),
+            tindex.RetrievalIndex(vecs, paths, device="cpu", **kw))
+
+
+def _index_answers_agree(card, cpu, q, k):
+    cs, ci = card.query_vectors(q, k)
+    ps, pi = cpu.query_vectors(q, k)
+    np.testing.assert_array_equal(ci, pi)
+    # float32 sums in another order on the card
+    np.testing.assert_allclose(cs, ps, rtol=0, atol=2e-6)
+
+
+@pytest.mark.parametrize("q", [1, 3, 17, 33])
+@pytest.mark.parametrize("shape", INDEX_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("mode", sorted(INDEX_MODES))
+def test_index_routes_on_card_match_the_cpu(cuda_device, mode, shape, q):
+    n, d = shape
+    rng = np.random.default_rng(n + d)
+    vecs = rng.normal(size=(n, d)).astype(np.float32)
+    card, cpu = _index_on_both(vecs, **INDEX_MODES[mode])
+    if card.quantize == "int8":
+        np.testing.assert_array_equal(card.vectors[:n].cpu().numpy(), cpu.vectors[:n].numpy())
+        np.testing.assert_allclose(card.scales[:n].cpu().numpy(), cpu.scales[:n].numpy(),
+                                   rtol=5e-7, atol=0)
+    queries = rng.normal(size=(q, d)).astype(np.float32)
+    _index_answers_agree(card, cpu, queries, k=5)
+
+
+@pytest.mark.parametrize("q", [1, 3, 17, 33])
+@pytest.mark.parametrize("shape", INDEX_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_int8_accumulators_on_card_bit_for_bit(cuda_device, shape, q):
+    n, d = shape
+    rng = np.random.default_rng(q)
+    q8 = torch.from_numpy(rng.integers(-127, 128, size=(q, d)).astype(np.int8)).cuda()
+    g8 = torch.from_numpy(rng.integers(-127, 128, size=(n, d)).astype(np.int8)).cuda()
+    got = tindex.int8_accumulators(q8, g8)
+    assert got.dtype == torch.int32 and got.shape == (q, n)
+    assert torch.equal(got, tindex.int8_accumulators_plain(q8, g8))
+    assert torch.equal(got.cpu(), tindex.int8_accumulators_plain(q8.cpu(), g8.cpu()))
+    full = torch.full((q, d), 127, dtype=torch.int8, device="cuda")
+    assert torch.equal(tindex.int8_accumulators(full, full[:1].expand(8, d).contiguous()),
+                       torch.full((q, 8), 127 * 127 * d, dtype=torch.int32, device="cuda"))
+
+
+@pytest.mark.parametrize("mode", sorted(INDEX_MODES))
+def test_index_ties_on_card_in_lax_top_k_order(cuda_device, mode):
+    base = np.random.default_rng(5).integers(-9, 10, size=(8, 16)).astype(np.float32)
+    vecs = np.concatenate([base, base[[2, 2, 5]], base[[2]] * 2.0, base])
+    kw = dict(INDEX_MODES[mode])
+    if "rerank" in kw:
+        kw["rerank"] = 40
+    card, cpu = _index_on_both(vecs, **kw)
+    q = np.concatenate([base[[2, 5, 0]], np.zeros((1, 16), np.float32)])
+    s, i = card.query_vectors(q, 6)
+    assert sorted(i[0, :5]) == [2, 8, 9, 11, 14]
+    # Copies may round apart by their positions in a float32 product;
+    # where they score alike, the lower index comes first.
+    for row_s, row_i in zip(s, i):
+        assert all(a < b for a, b, x, y in zip(row_i, row_i[1:], row_s, row_s[1:]) if x == y)
+    if card.quantize == "int8" and card.screen_dim is None:
+        assert list(i[0, :5]) == [2, 8, 9, 11, 14]  # int32 sums tie exactly
+    assert list(i[3]) == [0, 1, 2, 3, 4, 5]  # a zero query scores 0 everywhere
+
+
+@pytest.mark.parametrize("mode", sorted(INDEX_MODES))
+def test_index_add_on_card_across_a_doubling(cuda_device, mode):
+    rng = np.random.default_rng(11)
+    vecs = rng.normal(size=(300, 40)).astype(np.float32)
+    paths = [str(i) for i in range(300)]
+    card = tindex.RetrievalIndex(vecs[:250], paths[:250], device="cuda", **INDEX_MODES[mode])
+    card.add(vecs[250:], paths[250:])  # capacity 256 -> 512
+    assert card.vectors.shape[0] == 512 and len(card) == 300
+    whole_card, whole_cpu = _index_on_both(vecs, **INDEX_MODES[mode])
+    q = rng.normal(size=(5, 40)).astype(np.float32)
+    s, i = card.query_vectors(q, 5)
+    ws, wi = whole_card.query_vectors(q, 5)
+    np.testing.assert_array_equal(i, wi)
+    np.testing.assert_array_equal(s, ws)
+    _index_answers_agree(card, whole_cpu, q, k=5)
+
+
+def test_prefetch_to_device_delivers_the_batches_on_the_card(cuda_device):
+    rng = np.random.default_rng(0)
+    batches = [(rng.integers(0, 256, size=(4, 32, 32, 3)).astype(np.uint8), f"b{i}")
+               for i in range(5)]
+    out = []
+    for imgs, name in tio.prefetch_to_device(iter(batches), depth=2):
+        assert imgs.is_cuda and imgs.dtype == torch.uint8
+        out.append((imgs.float().sum().item(), imgs.cpu().numpy(), name))
+    assert [name for *_, name in out] == [name for _, name in batches]
+    for (_, got, _), (want, _) in zip(out, batches):
+        np.testing.assert_array_equal(got, want)

@@ -13,7 +13,7 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "pyvisim_tpu_torch"
 
 _IMPORT_ALL = """
-import importlib, pkgutil, sys
+import importlib, json, pkgutil, sys
 import pyvisim_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
@@ -21,19 +21,27 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "flax" or m.startswith("flax.")
              or m == "pyvisim_tpu" or m.startswith("pyvisim_tpu."))
-print(len(names), bad)
+print(json.dumps([names, bad]))
 """
 
 
 def test_importing_every_module_loads_no_jax_and_no_jax_package():
+    import json
+
     res = subprocess.run(
         [sys.executable, "-c", _IMPORT_ALL], cwd=REPO, capture_output=True,
         text=True, timeout=120,
     )
     assert res.returncode == 0, res.stderr
-    count, bad = res.stdout.strip().split(" ", 1)
-    assert int(count) >= 16
-    assert bad == "[]"
+    names, bad = json.loads(res.stdout.strip().splitlines()[-1])
+    assert len(names) >= 22
+    import pyvisim_tpu_torch
+
+    for sub in pyvisim_tpu_torch.__all__:
+        assert f"pyvisim_tpu_torch.{sub}" in names
+    for mod in ("io._loader", "io._prefetch", "datasets.synthetic"):
+        assert f"pyvisim_tpu_torch.{mod}" in names
+    assert bad == []
 
 
 _FORBIDDEN = re.compile(
@@ -139,6 +147,28 @@ def test_sift_default_device_raises_without_cuda(no_cuda):
             make()
     assert RootSIFT(device="cpu").device.type == "cpu"
     assert VLADEncoder(device="cpu").feature_extractor.device.type == "cpu"
+
+
+def test_index_and_prefetch_default_device_raise_without_cuda(no_cuda, tmp_path):
+    from pyvisim_tpu_torch.features import SIFT
+    from pyvisim_tpu_torch.index import RetrievalIndex
+    from pyvisim_tpu_torch.io import PrefetchIterator, prefetch_to_device
+
+    vecs = np.random.default_rng(0).normal(size=(4, 8)).astype(np.float32)
+    paths = [str(i) for i in range(4)]
+    for make in (lambda: RetrievalIndex(vecs, paths),
+                 lambda: RetrievalIndex.from_encoding_map(dict(zip(paths, vecs))),
+                 lambda: prefetch_to_device(iter([vecs])),
+                 lambda: SIFT(backend="opencv")):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    cpu = RetrievalIndex(vecs, paths, quantize="int8", device="cpu")
+    cpu.save(str(tmp_path / "i.npz"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        RetrievalIndex.load(str(tmp_path / "i.npz"))
+    assert RetrievalIndex.load(str(tmp_path / "i.npz"), device="cpu").device.type == "cpu"
+    # a host-only prefetch needs no device
+    assert next(PrefetchIterator(iter([vecs]), to_device=False)) is vecs
 
 
 def test_conv_probe_patches_lines_that_the_conv_source_has():

@@ -201,6 +201,6 @@ def test_extractor_call_and_lambda(images):
     assert lam(img).shape == (3, 5)
     with pytest.raises(ValueError):
         Lambda(lambda im: np.ones((3, 4), np.float32), output_dim=5)(img)
-    for backend in ("tpu", "opencv"):  # the OpenCV route is not ported
-        with pytest.raises(ValueError, match="backend"):
-            SIFT(backend=backend, device="cpu")
+    with pytest.raises(ValueError, match="backend"):
+        SIFT(backend="tpu", device="cpu")  # the port's batched backend is "torch"
+    assert SIFT(backend="opencv", device="cpu").descriptor_budget is None
