@@ -113,6 +113,37 @@ Phases, each of which raises on a failed check:
    against the int8 scan at rerank 16-256, the top-k's cost, and one
    ``query(encoder, [image])`` end to end.
 
+9. The Siamese trainer and encoder: ``SiameseEmbedder("vgg16", 128)`` in
+   float32 (TF32 off) trains 30 ``nt_xent`` steps with ``adamw(3e-4)`` on
+   32-view batches (8 classes x 4 views, drawn by a seeded generator) of
+   the 128 training views of a 16-class synthetic corpus at 224^2: every
+   loss finite and the last 5 below the first 5. Then 3 steps each of
+   ``triplet``, ``cosface`` and ``arcface`` (16 classes) and 5 steps in
+   bf16, all finite; a narrow copy (vgg11, 2 convs, 64^2, B=8) whose loss
+   (rel 1e-5) and gradients (1e-3 * max|CPU| each) on the card match the
+   CPU's; ``save_train_state``/``restore_train_state`` bit for bit, and
+   the next step from both equal under ``cudnn.deterministic``; the
+   trained ``SiameseEncoder`` embeds the 128 views (norms 1 within 1e-5)
+   and a ragged batch (each image as encoded alone, within 1e-5), and a
+   float32 ``RetrievalIndex`` retrieves each view as itself. Prints step
+   ms, img/s and peak memory (float32 and bf16), top-1 accuracy and mAP of
+   the 80 held-out views for the trained and the untrained encoder, and a
+   profile of one step by kernel and operator.
+10. ResNet50 trunks: kernels 1 and 3 at D = 2,050 against their plain
+   versions at phase 2a's and 2c's gates (128 sets of 49; 6,272 rows),
+   timed; ``DeepConvFeature(module=ResNetTrunk("resnet50"))`` at 224^2 on
+   phase 3's 128 images in float32 (TF32 off), bf16 and int8 (window
+   7-56): the float32 trunk on the card against the CPU on 2 images
+   (cosine > 0.9999); ``learn()`` of K-Means-256 on the float trunk's
+   6,272 descriptors (one kernel-3 launch per Lloyd step); VLAD with those
+   centers on each trunk, one kernel-1 launch per encode, and in int8 13
+   kernel-8 launches and 39 ``int8_gemm_conv`` calls; self-retrieval on
+   each; every kernel-8, ``int8_gemm_conv`` and kernel-1 call of one int8
+   encode against its plain version on the path's arguments (int32 sums
+   bit for bit); int8 against float32 descriptors at cosine > 0.995 per
+   image. Prints the trunks' ms per 128 images, encode img/s, each int8
+   route's ms beside its bound, and the int8 trunk's device profile.
+
 Each slice resets the kernels' launch counts just before it and reads
 them just after.
 
@@ -181,6 +212,12 @@ def structured_images(rng, n: int, size: int | tuple[int, int] = 224) -> np.ndar
     return np.clip(up + rng.normal(0, 12, size=up.shape), 0, 255).astype(np.uint8)
 
 
+def self_device_us(e) -> float:
+    """A profiler event's device time, under either of torch's names."""
+    us = getattr(e, "self_device_time_total", None)
+    return e.self_cuda_time_total if us is None else us
+
+
 def profile_device_graph(fn, reps: int = 3, top: int = 8) -> dict:
     """Device time by kernel over ``reps`` calls of ``fn``, and the share of
     the window in which the card ran no kernel."""
@@ -197,11 +234,6 @@ def profile_device_graph(fn, reps: int = 3, top: int = 8) -> dict:
         end.record()
         torch.cuda.synchronize()
     window_ms = start.elapsed_time(end)
-
-    def self_device_us(e):
-        us = getattr(e, "self_device_time_total", None)
-        return e.self_cuda_time_total if us is None else us
-
     events = prof.key_averages()
     kernels = sorted(
         ((e.key, self_device_us(e), e.count) for e in events
@@ -253,17 +285,18 @@ def phase_environment(build):
     return smi
 
 
-def margin_vlad_inputs():
-    """Phase 2a's inputs on the card: 128 sets of 196 x 514 descriptors near
-    256 known centers (no label is a near tie), a tenth of the rows
-    weightless, set 0 fully masked, one fractional weight."""
-    g = torch.Generator(device="cpu").manual_seed(0)
-    protos = torch.randn(K, D, generator=g)
-    true = torch.randint(0, K, (B * N,), generator=g)
+def margin_vlad_inputs(b: int = B, n: int = N, d: int = D, seed: int = 0):
+    """Phase 2a's inputs on the card: 128 sets of 196 x 514 descriptors (or
+    ``b`` sets of ``n`` x ``d``) near 256 known centers (no label is a near
+    tie), a tenth of the rows weightless, set 0 fully masked, one
+    fractional weight."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    protos = torch.randn(K, d, generator=g)
+    true = torch.randint(0, K, (b * n,), generator=g)
     true[:K] = torch.arange(K)  # every cluster populated
-    desc = (protos[true] + 0.1 * torch.randn(B * N, D, generator=g)).reshape(B, N, D)
-    centers = protos + 0.01 * torch.randn(K, D, generator=g)
-    mask = (torch.rand(B, N, generator=g) > 0.1).float()
+    desc = (protos[true] + 0.1 * torch.randn(b * n, d, generator=g)).reshape(b, n, d)
+    centers = protos + 0.01 * torch.randn(K, d, generator=g)
+    mask = (torch.rand(b, n, generator=g) > 0.1).float()
     mask[0] = 0.0  # one fully masked set
     mask[1, 3] = 0.37  # one fractional weight
     return desc.cuda(), mask.cuda(), centers.cuda()
@@ -2277,6 +2310,435 @@ def phase_serving(conv, agg, enc):
     return launches, numbers
 
 
+# Phase 9: the Siamese trainer and encoder at full width (VGG16, 224^2).
+TRAIN_CLASSES, TRAIN_VIEWS, HELD_OUT_VIEWS = 16, 8, 5
+TRAIN_B, TRAIN_STEPS, TRAIN_SIZE = 32, 30, 224
+
+
+def training_corpus():
+    """16 synthetic classes x 13 views at 240 x 300: views 0-7 (128 images,
+    class-major) are the training set and the gallery, views 8-12 (80)
+    the held-out queries."""
+    from pyvisim_tpu_torch.datasets import make_retrieval_corpus
+
+    per = TRAIN_VIEWS + HELD_OUT_VIEWS
+    imgs, labels = make_retrieval_corpus(TRAIN_CLASSES, per)
+    train = [i for i in range(len(imgs)) if i % per < TRAIN_VIEWS]
+    held = [i for i in range(len(imgs)) if i % per >= TRAIN_VIEWS]
+    return [imgs[i] for i in train], labels[train], [imgs[i] for i in held], labels[held]
+
+
+def same_state(a, b) -> bool:
+    """Parameters and optimizer state of two TrainStates bit for bit."""
+    if a.step != b.step or any(not torch.equal(a.params[k], b.params[k]) for k in a.params):
+        return False
+    sa, sb = a.opt_state.state_dict()["state"], b.opt_state.state_dict()["state"]
+    return sa.keys() == sb.keys() and all(
+        torch.equal(sa[i][key], sb[i][key]) for i in sa for key in sa[i])
+
+
+def step_ms(step, state, draw, n: int):
+    """``n`` steps on fresh batches; the losses and each step's CUDA-event ms."""
+    losses, times = [], []
+    for _ in range(n):
+        x, y = draw()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, loss = step(state, x, y)
+        end.record()
+        torch.cuda.synchronize()
+        losses.append(float(loss))
+        times.append(start.elapsed_time(end))
+    return state, losses, times
+
+
+def narrow_card_vs_cpu(S, x, y) -> dict:
+    """vgg11 with 2 convs at 64^2, B=8: the nt_xent loss and its gradients on
+    the card (float32, TF32 off) against the CPU. Gates: the loss to rel
+    1e-5 and each gradient to 1e-3 * its max |CPU| (f32 sums in other
+    orders)."""
+    model = S.SiameseEmbedder("vgg11", embed_dim=128, trunk_convs=2)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        state = S.create_train_state(model, S.adamw(3e-4), seed=2, device=dev)
+        with S.full_f32():
+            loss = S.make_loss_fn(model, "nt_xent")(state.params, x.to(dev), y.to(dev))
+            loss.backward()
+        out[dev] = loss.item(), {k: p.grad.cpu() for k, p in state.params.items()}
+    (lc, gc), (lg, gg) = out["cpu"], out["cuda"]
+    loss_rel = abs(lg - lc) / abs(lc)
+    grad_rel = {k: float((gg[k] - gc[k]).abs().max() / gc[k].abs().max()) for k in gc}
+    log(f"siamese narrow card vs cpu: loss {lg:.7f} vs {lc:.7f} (rel {loss_rel:.2e}), "
+        f"gradient max|diff| / max|cpu| {max(grad_rel.values()):.2e}")
+    check(loss_rel <= 1e-5, f"narrow Siamese loss on the card off by rel {loss_rel}")
+    check(all(v <= 1e-3 for v in grad_rel.values()),
+          f"narrow Siamese gradients on the card disagree with the CPU: {grad_rel}")
+    return {"loss_rel": loss_rel, "grad_rel_max": max(grad_rel.values())}
+
+
+def retrieval_quality(enc, gallery, train_labels, held_imgs, held_labels) -> dict:
+    from pyvisim_tpu_torch import eval as pv_eval
+
+    paths = [f"train_{i:03d}.png" for i in range(len(gallery))]
+    enc_map = dict(zip(paths, gallery))
+    path_labels = dict(zip(paths, train_labels.tolist()))
+    return {"top1_accuracy": pv_eval.top_k_accuracy(held_imgs, held_labels, enc_map,
+                                                    path_labels, enc, k=1),
+            "map": pv_eval.top_k_map(held_imgs, held_labels, enc_map, path_labels, enc)}
+
+
+def phase_siamese():
+    """Phase 9: train SiameseEmbedder("vgg16", 128) with adamw(3e-4) and
+    nt_xent for 30 steps of 32 views at 224^2, float32 with TF32 off; the
+    other losses, bf16, a narrow copy against the CPU, a checkpoint round
+    trip, and the trained encoder's embeddings served by a float32
+    RetrievalIndex."""
+    import tempfile
+
+    from pyvisim_tpu_torch import checkpoint, profiling
+    from pyvisim_tpu_torch.encoders import SiameseEncoder
+    from pyvisim_tpu_torch.index import RetrievalIndex
+    from pyvisim_tpu_torch.models import siamese as S
+    from pyvisim_tpu_torch.ops.resize import masked_linear_resize
+
+    t_phase = time.perf_counter()
+    train_imgs, train_labels, held_imgs, held_labels = training_corpus()
+    u8 = torch.from_numpy(np.stack(train_imgs)).cuda()
+    x_all = masked_linear_resize(u8.float() / 255.0, TRAIN_SIZE)
+    y_all = torch.from_numpy(train_labels).cuda()
+    gen = torch.Generator().manual_seed(0)
+
+    def draw():
+        """8 classes x 4 of their views, drawn by a seeded generator."""
+        classes = torch.randperm(TRAIN_CLASSES, generator=gen)[: TRAIN_B // 4]
+        idx = torch.cat([c * TRAIN_VIEWS + torch.randperm(TRAIN_VIEWS, generator=gen)[:4]
+                         for c in classes.tolist()])
+        return x_all[idx.cuda()], y_all[idx.cuda()]
+
+    numbers = {"batch": TRAIN_B, "image_size": TRAIN_SIZE, "steps": TRAIN_STEPS}
+    model = S.SiameseEmbedder("vgg16", embed_dim=128)
+    opt = S.adamw(3e-4)
+    state = S.create_train_state(model, opt, seed=0)
+    untrained = SiameseEncoder.from_train_state(model, state)
+    step = S.train_step(model, opt, loss="nt_xent")
+    torch.cuda.reset_peak_memory_stats()
+    state, losses, times = step_ms(step, state, draw, TRAIN_STEPS)
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    log(f"siamese f32 nt_xent losses: {[round(v, 4) for v in losses]}")
+    check(all(np.isfinite(losses)), "a non-finite float32 training loss")
+    check(last < first, f"the loss did not fall: first 5 {first:.4f}, last 5 {last:.4f}")
+    f32_ms = statistics.median(times[5:])
+    numbers["f32"] = {"step_ms": f32_ms, "img_per_s": TRAIN_B / f32_ms * 1e3,
+                      "first_step_ms": times[0],
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                      "loss_first5": first, "loss_last5": last}
+
+    model16 = S.SiameseEmbedder("vgg16", embed_dim=128, n_classes=TRAIN_CLASSES)
+    numbers["other_losses"] = {}
+    for loss in ("triplet", "cosface", "arcface"):
+        st = S.create_train_state(model16, opt, seed=1)
+        st, ls_, ts = step_ms(S.train_step(model16, opt, loss=loss), st, draw, 3)
+        check(all(np.isfinite(ls_)), f"a non-finite {loss} loss: {ls_}")
+        numbers["other_losses"][loss] = {"losses": ls_, "step_ms": statistics.median(ts)}
+        del st
+
+    model_bf = S.SiameseEmbedder("vgg16", embed_dim=128, dtype=torch.bfloat16)
+    st = S.create_train_state(model_bf, opt, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    st, ls_, ts = step_ms(S.train_step(model_bf, opt), st, draw, 5)
+    check(all(np.isfinite(ls_)), f"a non-finite bf16 loss: {ls_}")
+    bf_ms = statistics.median(ts[2:])
+    numbers["bf16"] = {"losses": ls_, "step_ms": bf_ms, "img_per_s": TRAIN_B / bf_ms * 1e3,
+                       "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    del st
+
+    x8, y8 = draw()
+    x8 = masked_linear_resize(x8[:8].cpu(), 64)
+    numbers["narrow_card_vs_cpu"] = narrow_card_vs_cpu(S, x8, y8[:8].cpu())
+
+    with tempfile.TemporaryDirectory() as tmp:
+        checkpoint.save_train_state(tmp, state)
+        restored = checkpoint.restore_train_state(
+            tmp, S.create_train_state(model, opt, seed=5))
+        check(checkpoint.latest_step(tmp) == TRAIN_STEPS, "the checkpoint's step")
+    check(same_state(state, restored), "restored parameters or optimizer state differ")
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        x, y = draw()
+        state, l_live = step(state, x, y)
+        restored, l_rest = step(restored, x, y)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+    check(torch.equal(l_live, l_rest) and same_state(state, restored),
+          "the step from the restored state differs from the live state's")
+    log(f"siamese checkpoint: restored bit for bit; the next step equal (loss {float(l_live):.6f})")
+    del restored
+
+    enc = SiameseEncoder.from_train_state(model, state)
+    gallery = enc.encode(train_imgs)
+    norms = np.linalg.norm(gallery.astype(np.float64), axis=1)
+    check(gallery.shape == (len(train_imgs), 128), f"gallery embeddings {gallery.shape}")
+    check(float(np.abs(norms - 1).max()) <= 1e-5, f"embedding norms {norms.min()}..{norms.max()}")
+    ragged = [img[: 160 + 16 * i, : 300 - 20 * i] for i, img in enumerate(held_imgs[:6])]
+    together = enc.encode(ragged)
+    alone = np.concatenate([enc.encode(i) for i in ragged])
+    ragged_err = float(np.abs(together - alone).max())
+    check(ragged_err <= 1e-5, f"a ragged image's embedding depends on its batch: {ragged_err}")
+    index = RetrievalIndex(gallery, [str(i) for i in range(len(gallery))])
+    _, top = index.query_vectors(gallery, k=1)
+    self_hits = int((top[:, 0] == np.arange(len(gallery))).sum())
+    check(self_hits == len(gallery), f"self-retrieval {self_hits}/{len(gallery)}")
+    numbers["encoder"] = {
+        "ragged_max_abs_diff": ragged_err, "self_retrieval": self_hits,
+        "encode_img_per_s": images_per_s(enc, train_imgs),
+        "trained": retrieval_quality(enc, gallery, train_labels, held_imgs, held_labels),
+        "untrained": retrieval_quality(untrained, untrained.encode(train_imgs), train_labels,
+                                       held_imgs, held_labels),
+    }
+    # Where a float32 step's time goes, by kernel and by operator; and the
+    # port's own trace context on the card.
+    x, y = draw()
+    numbers["profile_step"] = profile_device_graph(lambda: step(state, x, y), reps=3, top=12)
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace(tmp) as prof:
+            step(state, x, y)
+        traced = [p.name for p in pathlib.Path(tmp).glob("*.json")]
+    cuda_us = sum(self_device_us(e) for e in prof.key_averages())
+    check(traced and cuda_us > 0, f"profiling.trace wrote {traced}, device us {cuda_us}")
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    log(json.dumps({"siamese": numbers}))
+    return numbers
+
+
+# Phase 10: ResNet50 trunks at 224^2 as DeepConvFeature modules; VLAD-256.
+R50_D, R50_N = 2050, 49
+R50_K8, R50_GEMM = 13, 39  # int8 block convs of one resnet50 forward: 3x3/1, the rest
+
+
+def resnet_kernel_gates(agg, ls) -> dict:
+    """Kernels 1 and 3 at ResNet50's width against their plain versions at
+    phase 2a's and 2c's gates, and timed beside them and their bounds:
+    kernel 1 at 128 sets of 49 x 2,050 (K=256), kernel 3 at the 6,272 x
+    2,050 rows of the same images."""
+    desc, mask, centers = margin_vlad_inputs(B, R50_N, R50_D, seed=10)
+    out, labels = agg.vlad_aggregate_batched(desc, mask, centers, return_labels=True)
+    ref, ref_labels = agg.vlad_aggregate_reference(desc, mask, centers, return_labels=True)
+    torch.cuda.synchronize()
+    label_gate(labels, ref_labels, mask, "kernel 1 at D=2050")
+    vlad_err = max_err(out, ref, "kernel 1 at D=2050")
+    n_valid = int((mask != 0).sum())
+    vb = bound(2 * n_valid * K * R50_D + 2 * n_valid * R50_D + 2 * B * K * R50_D,
+               4 * (B * R50_N * R50_D + B * R50_N + K * R50_D + B * K * R50_D))
+    vlad = {"shape": f"B={B} N={R50_N} D={R50_D} K={K}", "max_abs_err": vlad_err,
+            "ms": cuda_ms(lambda: agg.vlad_aggregate_batched(desc, mask, centers)),
+            "plain_ms": cuda_ms(lambda: agg.vlad_aggregate_reference(desc, mask, centers)), **vb}
+    flat, fmask = desc.reshape(-1, R50_D), mask.reshape(-1)
+    got = ls.lloyd_stats(flat, fmask, centers, return_labels=True)
+    want = ls.lloyd_stats_reference(flat, fmask, centers, return_labels=True)
+    torch.cuda.synchronize()
+    label_gate(got[3], want[3], fmask, "kernel 3 at D=2050")
+    lloyd_err = max_err(got[0], want[0], "kernel 3 sums at D=2050")
+    check(torch.equal(got[1], want[1]), "kernel 3 counts at D=2050")
+    rel = abs(float(got[2]) - float(want[2])) / float(want[2])
+    check(rel <= 1e-5, f"kernel 3 inertia at D=2050 off by rel {rel}")
+    rows = flat.shape[0]
+    lb = bound(2 * n_valid * K * R50_D + 2 * n_valid * R50_D,
+               4 * (rows * R50_D + rows + 2 * K * R50_D + K + 1))
+    lloyd = {"shape": f"N={rows} D={R50_D} K={K}", "max_abs_err": lloyd_err,
+             "ms": cuda_ms(lambda: ls.lloyd_stats(flat, fmask, centers)),
+             "plain_ms": cuda_ms(lambda: ls.lloyd_stats_reference(flat, fmask, centers)), **lb}
+    log(json.dumps({"resnet_kernels": {"vlad_aggregate": vlad, "lloyd_stats": lloyd}}))
+    return {"vlad_aggregate": vlad, "lloyd_stats": lloyd}
+
+
+def gemm_bound(x, wq, stride: int) -> dict:
+    """The least time of one int8_gemm_conv call: its int8 operations at the
+    int8 tensor rate, or x, the weights and the output moved once."""
+    b, h, w, cin = x.shape
+    cout, k = wq.shape[0], wq.shape[1]
+    ho, wo = (h + 2 * (k // 2) - k) // stride + 1, (w + 2 * (k // 2) - k) // stride + 1
+    ops = 2 * b * ho * wo * k * k * cin * cout
+    size = x.element_size()
+    n_bytes = size * b * h * w * cin + wq.numel() + 4 * cout + size * b * ho * wo * cout
+    ops_ms, bytes_ms = ops / INT8_TENSOR_OPS * 1e3, n_bytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "gop": ops / 1e9, "mb": n_bytes / 1e6}
+
+
+def resnet_on_path_checks(conv, quant, agg, run):
+    """``run()``, an int8 ResNet encode, with every kernel-8 call and every
+    int8_gemm_conv call held against its plain version on the arguments the
+    path gave it (outputs and int32 sums bit for bit; the sums from a
+    second call that is not counted), kernel 1's call through
+    ``vlad_on_path_gate``, and each int8 route timed beside its bound.
+    Returns what ``run()`` returns, the records and the times by route and
+    shape."""
+    from pyvisim_tpu_torch.ops import vlad as vlad_ops
+
+    saved_k8, saved_gemm = conv.conv3x3_q8, quant.int8_gemm_conv
+    saved_vlad = vlad_ops.vlad_aggregate_batched
+    counts = (saved_k8.launches, saved_gemm.launches, agg.vlad_aggregate_batched.launches)
+    records, routes = [], {}
+
+    def timed(key, fn, n_bytes_bound):
+        if key not in routes:
+            routes[key] = {"calls": 0, "ms": cuda_ms(fn, reps=3, rounds=3), **n_bytes_bound}
+        routes[key]["calls"] += 1
+
+    def k8_checked(x, wq, sw, b, **kwargs):
+        out = saved_k8(x, wq, sw, b, **kwargs)
+        _, acc = saved_k8(x, wq, sw, b, return_acc=True, **kwargs)
+        records.append(conv_on_path_gate(conv, "conv3x3_q8", out, acc, x, wq, (sw, b), kwargs))
+        b_, h, w, cin = x.shape
+        key = f"k8 3x3/1 {h}x{w}x{cin}->{wq.shape[0]}"
+        timed(key, lambda: saved_k8(x, wq, sw, b, **kwargs),
+              conv_bound(b_, h, cin, wq.shape[0], "k8", x.dtype))
+        return out
+
+    def gemm_checked(x, wq, sw, b=None, *, stride, padding, **kwargs):
+        out = saved_gemm(x, wq, sw, b, stride=stride, padding=padding, **kwargs)
+        _, acc = saved_gemm(x, wq, sw, b, stride=stride, padding=padding, return_acc=True)
+        want, want_acc = conv.quant_conv_reference(x, wq, sw, b, stride=stride, padding=padding,
+                                                   return_acc=True)
+        rec = {"kernel": "int8_gemm_conv", "shape": list(x.shape), "cout": int(wq.shape[0]),
+               "k": int(wq.shape[1]), "stride": stride}
+        check(torch.equal(acc, want_acc), f"int8_gemm_conv's int32 sums differ: {rec}")
+        check(torch.equal(out, want), f"int8_gemm_conv differs from its plain version: {rec}")
+        records.append(rec)
+        _, h, w, cin = x.shape
+        key = f"gemm {wq.shape[1]}x{wq.shape[2]}/{stride} {h}x{w}x{cin}->{wq.shape[0]}"
+        timed(key, lambda: saved_gemm(x, wq, sw, b, stride=stride, padding=padding),
+              gemm_bound(x, wq, stride))
+        return out
+
+    def vlad_checked(desc, mask, centers):
+        out = saved_vlad(desc, mask, centers)
+        records.append({"kernel": "vlad_aggregate",
+                        **vlad_on_path_gate(agg, out, desc, mask, centers)})
+        return out
+
+    # A wrapper counts its launches on the module attribute of its name, so
+    # the checks' own launches land on these and are dropped; the counts
+    # are as they were before this run.
+    k8_checked.launches = gemm_checked.launches = 0
+    conv.conv3x3_q8, quant.int8_gemm_conv = k8_checked, gemm_checked
+    vlad_ops.vlad_aggregate_batched = vlad_checked
+    try:
+        result = run()
+    finally:
+        conv.conv3x3_q8, quant.int8_gemm_conv = saved_k8, saved_gemm
+        vlad_ops.vlad_aggregate_batched = saved_vlad
+        saved_k8.launches, saved_gemm.launches, agg.vlad_aggregate_batched.launches = counts
+    kinds = [r["kernel"] for r in records]
+    check(kinds.count("conv3x3_q8") == R50_K8 and kinds.count("int8_gemm_conv") == R50_GEMM
+          and kinds.count("vlad_aggregate") == 1,
+          f"the int8 ResNet encode reached {sorted(set(kinds))}: {len(kinds)} calls")
+    return result, records, routes
+
+
+def phase_resnet(conv, agg, ls, images):
+    """Phase 10: DeepConvFeature(module=ResNetTrunk("resnet50")) at 224^2 on
+    the 128 images of phase 3, in float32 (TF32 off), bf16 and int8 (window
+    7-56, float32 around the int8 convs); K-Means-256 learned on the float
+    trunk's descriptors (kernel 3 at D = 2,050) and VLAD with it on every
+    trunk (kernel 1 at 128 x 49 x 2,050)."""
+    from pyvisim_tpu_torch.encoders import VLADEncoder
+    from pyvisim_tpu_torch.features import DeepConvFeature
+    from pyvisim_tpu_torch.models import quant
+    from pyvisim_tpu_torch.models import resnet as R
+
+    t_phase = time.perf_counter()
+    numbers = {"kernels": resnet_kernel_gates(agg, ls)}
+    weights = R.init_params("resnet50")
+
+    def extractor(name, device=None):
+        return DeepConvFeature(module=R.ResNetTrunk("resnet50", int8=name == "int8"),
+                               params=weights, image_size=224, device=device,
+                               dtype=torch.bfloat16 if name == "bf16" else torch.float32)
+
+    exts = {name: extractor(name) for name in ("float32", "bf16", "int8")}
+    check(all(e.output_dim == R50_D and e.descriptor_budget == R50_N for e in exts.values()),
+          "ResNet50 descriptors are not 49 x 2,050")
+    # The card's float32 trunk against the CPU's on 2 images.
+    two = images[:2]
+    card = exts["float32"].extract_batch(two)[0].float().cpu().numpy().reshape(2, -1)
+    cpu = extractor("float32", "cpu").extract_batch(two)[0].float().numpy().reshape(2, -1)
+    cos_cpu = cosine_rows(card, cpu)
+    log(f"resnet50 f32 card vs cpu: cosine {cos_cpu.tolist()}")
+    check(bool((cos_cpu > 0.9999).all()), f"float32 ResNet50 card and CPU disagree: {cos_cpu}")
+
+    # The path: learn() on the float trunk, then VLAD on each trunk.
+    wrappers = {"vlad": agg.vlad_aggregate_batched, "lloyd": ls.lloyd_stats,
+                "k8": conv.conv3x3_q8, "gemm": quant.int8_gemm_conv}
+    for w in wrappers.values():
+        w.launches = 0
+    history = {}
+    vlad_f32 = VLADEncoder(exts["float32"])
+    t0 = time.perf_counter()
+    vlad_f32.learn(list(images), n_clusters=K, history=history)
+    torch.cuda.synchronize()
+    learn_s = time.perf_counter() - t0
+    inertia = history["lloyd_inertia"][0]
+    check(ls.lloyd_stats.launches == len(inertia),
+          f"{ls.lloyd_stats.launches} Lloyd launches for {len(inertia)} iterations")
+    check(inertia[-1] <= inertia[0], "final inertia above the k-means++ centers' inertia")
+    centers = vlad_f32.clustering_model
+    encoders = {"float32": vlad_f32, **{name: VLADEncoder(exts[name], kmeans_model=centers)
+                                        for name in ("bf16", "int8")}}
+    per_encode, vecs = {}, {}
+    for name, enc in encoders.items():
+        enc.encode(list(images[:8]))  # warm up
+        before = {k: w.launches for k, w in wrappers.items()}
+        vecs[name] = enc.encode(list(images))
+        per_encode[name] = {k: w.launches - before[k] for k, w in wrappers.items()}
+        check(vecs[name].shape == (B, K * R50_D) and bool(np.isfinite(vecs[name]).all()),
+              f"{name} ResNet50 VLAD encodings")
+        self_retrieval(enc, images)
+    want = {"vlad": 1, "lloyd": 0, "k8": 0, "gemm": 0}
+    check(per_encode["float32"] == want and per_encode["bf16"] == want,
+          f"float ResNet50 encodes ran {per_encode}")
+    check(per_encode["int8"] == {**want, "k8": R50_K8, "gemm": R50_GEMM},
+          f"the int8 ResNet50 encode ran {per_encode['int8']}")
+    launches = {k: w.launches for k, w in wrappers.items()}
+    check(all(launches[k] for k in ("vlad", "lloyd", "k8")), f"phase 10 launches {launches}")
+    log(f"resnet50: learn {learn_s:.2f} s ({len(inertia)} Lloyd steps, inertia "
+        f"{inertia[0]:.6g} -> {inertia[-1]:.6g}); launches per encode {per_encode}")
+
+    # Outside the counts: the int8 encode's kernel calls against their plain
+    # versions, the trunks against each other, and the times.
+    _, records, routes = resnet_on_path_checks(
+        conv, quant, agg, lambda: encoders["int8"].encode(list(images)))
+    descs = {name: e.extract_batch(images)[0][..., :-2].float().reshape(B, -1).cpu().numpy()
+             for name, e in exts.items()}
+    cos = {name: cosine_rows(descs[name], descs["float32"]) for name in ("int8", "bf16")}
+    cos["int8_vlad"] = cosine_rows(vecs["int8"], vecs["float32"])
+    log("resnet50: cosine against the float32 trunk per image, min/mean: " + ", ".join(
+        f"{n} {c.min():.6f}/{c.mean():.6f}" for n, c in cos.items()))
+    check(bool((cos["int8"] > 0.995).all()),
+          f"int8 and float32 ResNet50 trunks disagree: min cosine {cos['int8'].min()}")
+    dev_images = torch.from_numpy(images).cuda()
+    with torch.inference_mode():
+        numbers["trunk_ms_per_128"] = {
+            name: cuda_ms(lambda e=e: e._forward(dev_images), reps=3, rounds=5)
+            for name, e in exts.items()}
+        numbers["profile_int8_trunk"] = profile_device_graph(
+            lambda: exts["int8"]._forward(dev_images), top=14)
+    numbers["encode_img_per_s"] = {name: images_per_s(enc, images)
+                                   for name, enc in encoders.items()}
+    numbers["int8_routes"] = routes
+    numbers["int8_calls_checked"] = len(records)
+    numbers["cosine_vs_f32_min"] = {n: float(c.min()) for n, c in cos.items()}
+    numbers["learn_s"] = learn_s
+    numbers["lloyd_iterations"] = len(inertia)
+    numbers["launches_per_encode_of_128"] = per_encode
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    log(json.dumps({"resnet": numbers, "launches": launches}))
+    return launches, numbers
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2334,6 +2796,17 @@ def main() -> int:
     kernel["launches_serving"] = launches8["vlad"]
     k7["launches_serving"] = launches8["k7"]
     k8["launches_serving"] = launches8["k8_pooled"] + launches8["k8_unpooled"]
+    phase_siamese()
+    torch.cuda.empty_cache()
+    launches10, numbers10 = phase_resnet(conv, agg, ls, images)
+    kernel["launches_resnet50"] = launches10["vlad"]
+    kernel["resnet50"] = numbers10["kernels"]["vlad_aggregate"]
+    lloyd_kernel["launches_resnet50_learn"] = launches10["lloyd"]
+    lloyd_kernel["resnet50"] = numbers10["kernels"]["lloyd_stats"]
+    k8["launches_resnet50"] = launches10["k8"]
+    k8["launches_per_resnet50_int8_encode_of_128"] = R50_K8
+    k8["resnet50_calls"] = {key: rec for key, rec in numbers10["int8_routes"].items()
+                            if key.startswith("k8")}
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [kernel, gmm_kernel, lloyd_kernel, *sift_kernels, k7, k8]}))
     print(json.dumps({

@@ -3,7 +3,8 @@
 The same image-similarity library (deep features, VLAD and Fisher-vector
 encoders and their Pipeline, on-device vocabulary learning with K-Means,
 GMM and PCA, cosine retrieval and its evaluation, gallery I/O and the
-serving index) in PyTorch, with the JAX
+serving index, the retrieval losses, ResNet trunks and the Siamese
+embedding trainer with its checkpoints) in PyTorch, with the JAX
 package's TPU kernels rewritten as CUDA kernels for Hopper. The module layout
 follows ``pyvisim_tpu`` so that each counterpart is found by name.
 
@@ -13,7 +14,8 @@ they raise instead of falling back to the CPU.
 
 __version__ = "0.1.0"
 
-__all__ = ["encoders", "features", "eval", "ops", "models", "io", "index", "datasets"]
+__all__ = ["encoders", "features", "eval", "ops", "models", "io", "index", "datasets", "losses",
+           "neural_networks", "checkpoint", "profiling"]
 
 
 def __getattr__(name):

@@ -5,6 +5,7 @@ in place from the JAX package's folder, located by path (never imported).
 """
 from __future__ import annotations
 
+import contextlib
 import logging
 import logging.handlers
 import os
@@ -70,3 +71,17 @@ def resolve_device(device=None) -> torch.device:
             "available; pass device='cpu' to run on the CPU."
         )
     return device
+
+
+@contextlib.contextmanager
+def full_f32():
+    """Float32 matmuls and convs in full float32 inside the block: cuBLAS's
+    and cuDNN's TF32 off, restored after it. Other cuDNN flags (such as
+    ``deterministic``) are left as they are."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved

@@ -2,12 +2,14 @@
 from ._base_encoder import GMMWeights, ImageEncoderBase, KMeansWeights, load_encoding_map
 from .fisher_vector import FisherVectorEncoder
 from .pipeline import Pipeline
+from .siamese import SiameseEncoder
 from .vlad import VLADEncoder
 
 __all__ = [
     "VLADEncoder",
     "FisherVectorEncoder",
     "Pipeline",
+    "SiameseEncoder",
     "KMeansWeights",
     "GMMWeights",
     "ImageEncoderBase",

@@ -5,8 +5,9 @@ the batched detect-and-describe of ``ops/sift.py`` with a fixed keypoint
 budget and masks (``backend="torch"``), or OpenCV's ``detectAndCompute``
 image by image on the host (``backend="opencv"``, the JAX package's golden
 route). ``DeepConvFeature`` is a
-VGG trunk (``models/vgg.py``) whose chosen conv map is flattened into
-descriptors, with a batched device path. The multi-device (mesh) SIFT
+VGG trunk (``models/vgg.py``), or a custom module such as a ResNet trunk
+(``models/resnet.py``), whose conv map is flattened into descriptors, with
+a batched device path. The multi-device (mesh) SIFT
 path is not ported.
 """
 from __future__ import annotations
@@ -23,6 +24,7 @@ from torch import nn
 from .._base_classes import FeatureExtractorBase
 from .._config import get_logger, resolve_device
 from ..models import vgg as vgg_lib
+from ..models.quant import QuantConv
 from ..ops import sift as sift_ops
 from ..ops.resize import masked_linear_resize
 
@@ -235,8 +237,10 @@ class DeepConvFeature(FeatureExtractorBase):
         ``torch.bfloat16`` runs it in bf16, channels-last. Descriptors keep
         this dtype; the encoders cast them to float32 before VLAD.
     :param module: optional ``nn.Module`` mapping ``(B, 3, S, S)`` to a
-        ``(B, C, Hf, Wf)`` map, used in place of the VGG trunk; ``params``,
-        if given, is loaded into it.
+        ``(B, C, Hf, Wf)`` map, used in place of the VGG trunk, such as
+        ``models.resnet.ResNetTrunk`` (float or int8); ``params``, if given,
+        is loaded into it. A module that holds a ``QuantConv`` runs
+        channels-last in every dtype, as the int8 VGG trunk does.
     :param int8: route the middle VGG convs through int8 (dynamic symmetric
         quantisation, per-image activation scales, per-channel weight
         scales; trunk-encoding cosine vs float32 > 0.999), and each conv
@@ -266,7 +270,6 @@ class DeepConvFeature(FeatureExtractorBase):
         self.image_size = image_size
         self.transform = transform
         self.dtype = dtype
-        self.int8 = int8 and module is None
         if module is not None:
             if params is not None:
                 module.load_state_dict(params)
@@ -284,6 +287,9 @@ class DeepConvFeature(FeatureExtractorBase):
         if dtype != torch.float32:
             model = model.to(memory_format=torch.channels_last)
         self._model = model
+        # An int8 trunk runs channels-last in every dtype: its kernels read NHWC.
+        self._channels_last = dtype != torch.float32 or any(
+            isinstance(m, QuantConv) for m in model.modules())
         if module is not None:
             probe = self._run_trunk(
                 torch.zeros((1, image_size, image_size, 3), dtype=dtype, device=self.device)
@@ -360,9 +366,9 @@ class DeepConvFeature(FeatureExtractorBase):
     def _run_trunk(self, x: torch.Tensor) -> torch.Tensor:
         """Preprocessed ``(B, S, S, 3)`` -> the trunk's ``(B, C, Hf, Wf)``."""
         inp = x.to(self.dtype).permute(0, 3, 1, 2)  # channels-last strides
+        if not self._channels_last:
+            inp = inp.contiguous()
         if self.dtype == torch.float32:
-            if not self.int8:  # the int8 trunk runs channels-last in every dtype
-                inp = inp.contiguous()
             # cuDNN runs float32 convs in TF32 unless told otherwise.
             flags = torch.backends.cudnn.flags(enabled=True, allow_tf32=False)
         else:

@@ -29,14 +29,13 @@ Differences from the JAX package, none of which changes a result:
 """
 from __future__ import annotations
 
-import contextlib
 import math
 from typing import Iterable, Sequence
 
 import numpy as np
 import torch
 
-from ._config import get_logger, resolve_device
+from ._config import full_f32, get_logger, resolve_device
 
 logger = get_logger("index")
 
@@ -64,17 +63,6 @@ def _jl_projection(d: int, screen_dim: int) -> torch.Tensor:
     bias. Seed-fixed, so regenerable from (d, screen_dim) alone."""
     gen = torch.Generator().manual_seed(0)
     return torch.randn((d, screen_dim), generator=gen) / math.sqrt(screen_dim)
-
-
-@contextlib.contextmanager
-def _full_f32():
-    """Float32 matmuls in full float32: TF32 off on CUDA."""
-    saved = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 def _top_k(scores: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -188,7 +176,7 @@ class RetrievalIndex:
                 f"screen_dim={screen_dim} must be < vector dim "
                 f"{vectors.shape[1]} (screening only pays below full rank)"
             )
-        with torch.no_grad(), _full_f32():
+        with torch.no_grad(), full_f32():
             if _scales is None:
                 vectors = _normalize_rows(vectors)
             self.screen_dim = screen_dim
@@ -244,7 +232,7 @@ class RetrievalIndex:
             raise ValueError(
                 "labels must be provided iff the index was built with labels"
             )
-        with torch.no_grad(), _full_f32():
+        with torch.no_grad(), full_f32():
             new = _normalize_rows(new)
             new_screen = None if self._proj is None else new @ self._proj
             new_scales = None
@@ -321,7 +309,7 @@ class RetrievalIndex:
         """(Q, D) float32 queries on the device -> (scores, indices) (Q, k)."""
         n = self._n
         r = self._route(q.shape[0], k)
-        with torch.no_grad(), _full_f32():
+        with torch.no_grad(), full_f32():
             qn = q / torch.clamp(torch.linalg.vector_norm(q, dim=1, keepdim=True), min=1e-12)
             if r is not None:
                 return self._screened(qn, k, r)

@@ -1,6 +1,8 @@
 """Model definitions in PyTorch (port of ``pyvisim_tpu/models``)."""
-from . import quant, vgg
+from . import quant, resnet, siamese, vgg
 from .quant import QuantConv
+from .resnet import ResNetTrunk
 from .vgg import VGGConvFeatures, params_from_jax
 
-__all__ = ["quant", "vgg", "QuantConv", "VGGConvFeatures", "params_from_jax"]
+__all__ = ["quant", "vgg", "resnet", "siamese", "QuantConv", "VGGConvFeatures", "ResNetTrunk",
+           "params_from_jax"]

@@ -13,21 +13,108 @@ dict loads into a float and an int8 trunk alike. They stay float32 whatever
 ``Module.to`` is asked, because the recipe quantises and adds the float32
 values; the int8 weights and their scales are derived from them on every
 load and every move.
+
+On CUDA, the 3x3, stride-1, padding-1 conv runs through kernel 8. The
+other convs of ResNet's int8 blocks (1x1 at stride 1 or 2, 3x3 at stride 2
+with padding 1) run through :func:`int8_gemm_conv`, an exact int32 product
+on ``torch._int_mm``: JAX computes them with XLA's
+``lax.conv_general_dilated``, outside any Pallas kernel. Every other shape
+raises on CUDA.
 """
 from __future__ import annotations
 
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops.cuda import conv as conv_ops
 
-__all__ = ["QuantConv"]
+__all__ = ["QuantConv", "int8_gemm_conv", "gemm_route"]
 
 
 def _pair(v) -> tuple[int, int]:
     return (v, v) if isinstance(v, int) else tuple(v)
+
+
+def gemm_route(kernel_size, stride: int, padding) -> bool:
+    """Whether :func:`int8_gemm_conv` runs this conv on CUDA: a 1x1 conv at
+    stride 1 or 2 without padding ("SAME" pads a 1x1 conv by nothing), or a
+    3x3 conv at stride 2 with padding 1."""
+    k, p = _pair(kernel_size), padding if isinstance(padding, str) else _pair(padding)
+    if k == (1, 1):
+        return stride in (1, 2) and p in ("SAME", "VALID", (0, 0))
+    return k == (3, 3) and stride == 2 and p == (1, 1)
+
+
+def _im2col_rows(xq: torch.Tensor, kh: int, stride: int, pad: int):
+    """NHWC int8 ``xq`` as the ``(B * H' * W', kh * kh * Cin)`` rows of a
+    ``kh x kh`` conv at ``stride`` with ``pad`` zeros around, taps in the
+    order of ``wq (Cout, kh, kw, Cin)``; and ``(B, H', W')``."""
+    b, h, w, c = xq.shape
+    ho, wo = (h + 2 * pad - kh) // stride + 1, (w + 2 * pad - kh) // stride + 1
+    if kh == 1:
+        taps = xq[:, : stride * (ho - 1) + 1 : stride, : stride * (wo - 1) + 1 : stride]
+        return taps.reshape(b * ho * wo, c), (b, ho, wo)
+    xp = F.pad(xq, (0, 0, pad, pad, pad, pad))
+    taps = [xp[:, dy : dy + stride * (ho - 1) + 1 : stride, dx : dx + stride * (wo - 1) + 1 : stride]
+            for dy in range(kh) for dx in range(kh)]
+    return torch.stack(taps, dim=3).reshape(b * ho * wo, kh * kh * c), (b, ho, wo)
+
+
+def _int_mm(rows: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+    """``rows (M, K) @ w2 (N, K).T`` in int32 through ``torch._int_mm``,
+    which takes more than 16 rows: fewer are padded with zero rows."""
+    m = rows.shape[0]
+    if m <= 16:
+        rows = F.pad(rows, (0, 0, 0, 17 - m))
+    return torch._int_mm(rows.contiguous(), w2.T)[:m]
+
+
+def int8_gemm_conv(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
+                   b: torch.Tensor | None = None, *, stride: int, padding,
+                   return_acc: bool = False):
+    """``QuantConv``'s exact int32 route for the convs of :func:`gemm_route`.
+
+    ``x (B, H, W, Cin)`` float32 or bfloat16 NHWC; ``wq (Cout, kh, kw, Cin)``
+    int8 and ``sw (Cout,)``; ``b (Cout,)`` or None. ``x`` is quantised per
+    image on its whole extent (:func:`~..ops.cuda.conv.quantize_activation`,
+    the scale of the plain version), then cut into the conv's rows (a
+    strided slice for 1x1, an int8 im2col for 3x3), and the int32 sums are
+    ``torch._int_mm`` of those rows with ``wq`` as a ``(Cout, K)`` matrix (K
+    and Cout multiples of 8; fewer than 17 rows are padded with zero rows,
+    which add nothing). The epilogue is the plain version's,
+    ``float(acc) * (sx * sw) + b``, one rounding to ``x.dtype``, so the
+    result equals :func:`~..ops.cuda.conv.quant_conv_reference` bit for bit.
+    CPU tensors take that plain version. ``launches`` counts the CUDA calls.
+    """
+    if x.device.type == "cpu":
+        return conv_ops.quant_conv_reference(x.contiguous(), wq, sw, b, stride=stride,
+                                             padding=padding, return_acc=return_acc)
+    kh, kw = wq.shape[1], wq.shape[2]
+    if not gemm_route((kh, kw), stride, padding) or wq.shape[3] != x.shape[3]:
+        raise NotImplementedError(
+            f"int8_gemm_conv runs 1x1 convs at stride 1 or 2 and 3x3 convs at stride 2 with "
+            f"padding 1; got kernel {(kh, kw)}, stride {stride}, padding {padding!r}, "
+            f"x {tuple(x.shape)}, wq {tuple(wq.shape)}"
+        )
+    cout, k = wq.shape[0], kh * kw * wq.shape[3]
+    if k % 8 or cout % 8:
+        raise ValueError(f"torch._int_mm needs Cin * kh * kw ({k}) and Cout ({cout}) "
+                         "to be multiples of 8")
+    xq, sx = conv_ops.quantize_activation(x)
+    rows, (bsz, ho, wo) = _im2col_rows(xq, kh, stride, 0 if kh == 1 else 1)
+    acc = _int_mm(rows, wq.reshape(cout, k)).view(bsz, ho, wo, cout)
+    y = acc.to(torch.float32) * (sx.view(-1, 1, 1, 1) * sw.to(torch.float32))
+    if b is not None:
+        y = y + b.to(torch.float32)
+    y = y.to(x.dtype)
+    int8_gemm_conv.launches += 1
+    return (y, acc) if return_acc else y
+
+
+int8_gemm_conv.launches = 0
 
 
 class QuantConv(nn.Module):
@@ -37,7 +124,8 @@ class QuantConv(nn.Module):
     On the CPU any kernel size, stride and padding ("SAME" as Flax pads it,
     "VALID", an int or an (h, w) pair) run through the plain version. On
     CUDA the 3x3, stride-1, SAME (or padding 1) conv runs through kernel 8
-    (``ops.cuda.conv.conv3x3_q8``); other shapes raise
+    (``ops.cuda.conv.conv3x3_q8``), the convs of :func:`gemm_route`
+    through :func:`int8_gemm_conv` (without ReLU); other shapes raise
     ``NotImplementedError``. ``relu`` applies ReLU in the kernel's epilogue,
     which equals ``relu(QuantConv(...)(x))``.
     """
@@ -103,6 +191,9 @@ class QuantConv(nn.Module):
             if x.device.type == "cpu":
                 xh = xh.contiguous()
             y = conv_ops.conv3x3_q8(xh, self.wq, self.sw, self.bias, relu=self.relu)
+        elif gemm_route(self.kernel_size, self.stride, self.padding) and not self.relu:
+            y = int8_gemm_conv(xh, self.wq, self.sw, self.bias, stride=self.stride,
+                               padding=self.padding)
         elif x.device.type == "cpu":
             y = conv_ops.quant_conv_reference(
                 xh.contiguous(), self.wq, self.sw, self.bias, stride=self.stride,
@@ -110,9 +201,10 @@ class QuantConv(nn.Module):
             )
         else:
             raise NotImplementedError(
-                f"QuantConv on {x.device.type} runs only the 3x3, stride-1, SAME conv of its "
-                f"kernel; kernel {self.kernel_size}, stride {self.stride}, padding "
-                f"{self.padding!r} come with the port of ResNet's int8 trunk, a later slice."
+                f"QuantConv on {x.device.type} runs the 3x3 stride-1 SAME conv, 1x1 convs at "
+                f"stride 1 or 2 and the 3x3 stride-2 conv with padding 1 (the last two without "
+                f"ReLU); not kernel {self.kernel_size}, stride {self.stride}, padding "
+                f"{self.padding!r}, relu={self.relu}."
             )
         return y.permute(0, 3, 1, 2)
 

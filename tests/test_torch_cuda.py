@@ -14,6 +14,7 @@ import numpy as np
 from pyvisim_tpu_torch import index as tindex
 from pyvisim_tpu_torch import io as tio
 from pyvisim_tpu_torch.models import QuantConv
+from pyvisim_tpu_torch.models import quant as tquant
 from pyvisim_tpu_torch.models import vgg as tvgg
 from pyvisim_tpu_torch.ops import fisher as tfisher
 from pyvisim_tpu_torch.ops import gmm as tgmm
@@ -1056,3 +1057,180 @@ def test_prefetch_to_device_delivers_the_batches_on_the_card(cuda_device):
     assert [name for *_, name in out] == [name for _, name in batches]
     for (_, got, _), (want, _) in zip(out, batches):
         np.testing.assert_array_equal(got, want)
+
+
+# -- slice 10: ResNet's int8 routes, kernels 1, 3 and 8 at ResNet50's shapes,
+# -- and the Siamese trainer on the card against the CPU --
+
+# (B, H, W, Cin, Cout, kernel, stride): ResNet50's int8 1x1, 1x1/2 and 3x3/2
+# convs at 224^2 (56^2 to 7^2), odd sides, and maps of fewer than 17 rows,
+# which torch._int_mm takes padded.
+GEMM_SHAPES = [
+    (2, 56, 56, 64, 256, 1, 1), (2, 56, 56, 256, 512, 1, 2), (2, 56, 56, 128, 128, 3, 2),
+    (2, 28, 28, 512, 1024, 1, 2), (2, 14, 14, 512, 512, 3, 2), (2, 7, 7, 2048, 512, 1, 1),
+    (3, 9, 13, 64, 72, 3, 2), (3, 13, 9, 256, 64, 1, 2), (1, 3, 3, 1024, 2048, 1, 2),
+    (1, 2, 2, 64, 64, 1, 1), (1, 7, 7, 512, 512, 3, 2),
+]
+
+
+def _gemm_inputs(shape, dtype, device, seed=0):
+    b, h, w, ci, co, k, _ = shape
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(b, h, w, ci, generator=g)
+    x[0] *= 3.0  # images on different scales
+    wq, sw = tconv.quantize_weight(torch.randn(co, k, k, ci, generator=g) / (k * k * ci) ** 0.5)
+    return x.to(device, dtype), wq.contiguous().to(device), sw.to(device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("shape", GEMM_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_int8_gemm_route_bit_for_bit(cuda_device, shape, dtype):
+    """int8_gemm_conv on the card against quant_conv_reference on the card:
+    int32 sums and outputs bit for bit. (Against the CPU they may differ at
+    a rounding tie: PyTorch forms ``amax / 127`` as a product with the
+    reciprocal on CUDA and exactly on the CPU; tests/test_torch_resnet.py.)"""
+    stride, pad = shape[6], shape[5] // 2
+    x, wq, sw = _gemm_inputs(shape, dtype, cuda_device)
+    bias = torch.linspace(-0.5, 0.5, shape[4], device=cuda_device)
+    for b in (None, bias):
+        before = tquant.int8_gemm_conv.launches
+        got, acc = tquant.int8_gemm_conv(x, wq, sw, b, stride=stride, padding=pad,
+                                         return_acc=True)
+        want, want_acc = tconv.quant_conv_reference(x, wq, sw, b, stride=stride, padding=pad,
+                                                    return_acc=True)
+        torch.cuda.synchronize()
+        assert tquant.int8_gemm_conv.launches == before + 1
+        assert got.dtype == dtype and got.shape == want.shape
+        assert torch.equal(acc, want_acc) and torch.equal(got, want)
+
+
+def test_quant_conv_routes_on_card_and_refuses_the_rest(cuda_device):
+    """Each route of ResNet's convs through the module, bit for bit with
+    the plain version on the card's own quantised weights."""
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn(2, 64, 14, 14, generator=g).contiguous(memory_format=torch.channels_last)
+    xc = x.to(cuda_device)
+    for k, stride, pad in ((1, 1, 0), (1, 2, 0), (3, 2, 1), (3, 1, 1)):
+        layer = QuantConv(64, 128, k, stride, pad, bias=False)
+        layer.load_state_dict({"weight": torch.randn(128, 64, k, k, generator=g) * 0.05})
+        layer = layer.to(cuda_device)
+        with torch.no_grad():
+            got = layer(xc)
+        want = tconv.quant_conv_reference(xc.permute(0, 2, 3, 1).contiguous(), layer.wq,
+                                          layer.sw, None, stride=stride, padding=pad)
+        assert torch.equal(got, want.permute(0, 3, 1, 2)), (k, stride)
+    for k, stride, pad, relu in ((5, 1, 2, False), (3, 2, "SAME", False), (1, 1, 0, True),
+                                 (1, 3, 0, False), (7, 2, 3, False)):
+        layer = QuantConv(64, 64, k, stride, pad, relu=relu).to(cuda_device)
+        with pytest.raises(NotImplementedError):
+            layer(xc)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("shape", [(2, 56, 56, 64, 64), (2, 28, 28, 128, 128),
+                                   (2, 14, 14, 256, 256), (2, 7, 7, 512, 512)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_q8_kernel_at_resnet_shapes_without_bias_or_relu(cuda_device, shape, dtype):
+    """Kernel 8 as ResNet's 3x3 stride-1 convs call it: unpooled, no bias,
+    no ReLU (BatchNorm follows), bit for bit."""
+    x, wt, _ = _conv_inputs(shape, dtype, cuda_device, seed=5)
+    wq, sw = tconv.quantize_weight(wt)
+    wq = wq.contiguous()
+    got, acc = tconv.conv3x3_q8(x, wq, sw, None, relu=False, return_acc=True)
+    want, want_acc = tconv.conv3x3_q8_reference(x, wq, sw, None, pool=False, relu=False,
+                                                return_acc=True)
+    torch.cuda.synchronize()
+    assert torch.equal(acc, want_acc) and torch.equal(got, want)
+    assert bool((got < 0).any())  # no ReLU
+
+
+def test_vlad_and_lloyd_kernels_at_resnet50_width(cuda_device):
+    """Kernels 1 and 3 at D = 2,050 (ResNet50's 2,048 channels and the two
+    coordinates) with 49-row sets, as phase 10 runs them."""
+    desc, mask, centers = (t.to(cuda_device) for t in _margin_batch(16, 49, 2050, 256, seed=6))
+    out, labels = tagg.vlad_aggregate_batched(desc, mask, centers, return_labels=True)
+    ref, ref_labels = tagg.vlad_aggregate_reference(desc, mask, centers, return_labels=True)
+    torch.cuda.synchronize()
+    _labels_agree(labels, ref_labels, mask)
+    assert (out - ref).abs().max().item() <= 1e-4 * ref.abs().max().item() + 1e-5
+    flat, fmask = desc.reshape(-1, 2050), mask.reshape(-1)
+    got = tls.lloyd_stats(flat, fmask, centers, return_labels=True)
+    want = tls.lloyd_stats_reference(flat, fmask, centers, return_labels=True)
+    torch.cuda.synchronize()
+    _labels_agree(got[3], want[3], fmask)
+    _close(got[0], want[0], "sums")
+    _close(got[1], want[1], "counts")
+    torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=1e-4)
+
+
+def _route_counts():
+    return tconv.conv3x3_q8.launches, tquant.int8_gemm_conv.launches
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_int8_resnet50_on_card_matches_cpu(cuda_device, dtype):
+    """resnet50 with every block conv int8 (window 1-64) at 64^2: 13 kernel-8
+    launches and 39 int8_gemm_conv calls a forward, layer 4's 2x2 maps of
+    8 rows included; cosine > 0.999 per image against the CPU. Each of the
+    52 int8 convs quantises on its own device (scales one ulp apart for a
+    few % of images and channels, tests/test_torch_resnet.py), and a value
+    at a rounding boundary moves one int8 step; over the depth that gave
+    cosines of 0.9997 in float32 on the card (each conv is held bit for bit
+    against its plain version on the card by the tests above)."""
+    from pyvisim_tpu_torch.models import resnet as tresnet
+
+    x = torch.rand(2, 3, 64, 64, generator=torch.Generator().manual_seed(7))
+    x = x.contiguous(memory_format=torch.channels_last)
+    model = tresnet.ResNetTrunk("resnet50", int8=True, int8_min_spatial=1,
+                                int8_max_spatial=64).eval()
+    with torch.no_grad():
+        want = model.to(dtype)(x.to(dtype)).float()
+        before = _route_counts()
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            got = model.to(cuda_device)(x.to(cuda_device, dtype)).float().cpu()
+    after = _route_counts()
+    assert [a - b for a, b in zip(after, before)] == [13, 39]
+    cos = torch.nn.functional.cosine_similarity(got.flatten(1), want.flatten(1))
+    assert bool((cos > 0.999).all()), cos
+
+
+def test_deep_conv_feature_with_int8_resnet_on_card(cuda_device):
+    """DeepConvFeature's one-image probe at 64^2 reaches int8 convs of 4 rows;
+    descriptors against the CPU at cosine > 0.999, as above."""
+    from pyvisim_tpu_torch.features import DeepConvFeature
+    from pyvisim_tpu_torch.models import resnet as tresnet
+
+    module = tresnet.ResNetTrunk("resnet50", int8=True, int8_min_spatial=1, int8_max_spatial=64)
+    ext = DeepConvFeature(module=module, image_size=64, device="cuda")
+    img = (np.random.default_rng(8).random((70, 50, 3)) * 255).astype(np.uint8)
+    assert ext(img).shape == (4, 2050)
+    cpu = DeepConvFeature(module=tresnet.ResNetTrunk("resnet50", int8=True, int8_min_spatial=1,
+                                                     int8_max_spatial=64),
+                          image_size=64, device="cpu")
+    a, b = torch.from_numpy(ext(img)).flatten(), torch.from_numpy(cpu(img)).flatten()
+    assert float(torch.nn.functional.cosine_similarity(a, b, dim=0)) > 0.999
+
+
+def test_siamese_step_on_card_matches_cpu(cuda_device):
+    """One nt_xent loss and its gradients (vgg11, 2 convs, 64^2, B=8) on the
+    card in float32 with TF32 off against the CPU: the loss to rtol 1e-5,
+    each gradient to 1e-3 * its max |CPU| (f32 sums in other orders)."""
+    from pyvisim_tpu_torch.models import siamese as tsiam
+
+    model = tsiam.SiameseEmbedder("vgg11", embed_dim=32, trunk_convs=2)
+    x = torch.rand(8, 64, 64, 3, generator=torch.Generator().manual_seed(9))
+    labels = torch.tensor([0, 0, 1, 1, 2, 2, 3, 3])
+    out = {}
+    for dev in ("cpu", cuda_device):
+        state = tsiam.create_train_state(model, tsiam.adamw(1e-3), seed=1, device=dev)
+        with tsiam.full_f32():
+            loss = tsiam.make_loss_fn(model, "nt_xent")(state.params, x.to(dev), labels.to(dev))
+            loss.backward()
+        out[str(dev)] = loss.item(), {k: p.grad.cpu() for k, p in state.params.items()}
+        step = tsiam.train_step(model, tsiam.adamw(1e-3))
+        state, l2 = step(state, x.to(dev), labels.to(dev))
+        assert state.step == 1 and bool(torch.isfinite(l2))
+    (lc, gc), (lg, gg) = out["cpu"], out["cuda"]
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    for k in gc:
+        assert (gg[k] - gc[k]).abs().max() <= 1e-3 * gc[k].abs().max(), k

@@ -19,8 +19,7 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m == "jax" or m.startswith("jax.") or m == "flax" or m.startswith("flax.")
-             or m == "pyvisim_tpu" or m.startswith("pyvisim_tpu."))
+             if m.split(".")[0] in ("jax", "flax", "optax", "orbax", "pyvisim_tpu"))
 print(json.dumps([names, bad]))
 """
 
@@ -34,18 +33,19 @@ def test_importing_every_module_loads_no_jax_and_no_jax_package():
     )
     assert res.returncode == 0, res.stderr
     names, bad = json.loads(res.stdout.strip().splitlines()[-1])
-    assert len(names) >= 22
+    assert len(names) >= 50
     import pyvisim_tpu_torch
 
     for sub in pyvisim_tpu_torch.__all__:
         assert f"pyvisim_tpu_torch.{sub}" in names
-    for mod in ("io._loader", "io._prefetch", "datasets.synthetic"):
+    for mod in ("io._loader", "io._prefetch", "datasets.synthetic", "losses._losses",
+                "models.resnet", "models.siamese", "encoders.siamese"):
         assert f"pyvisim_tpu_torch.{mod}" in names
     assert bad == []
 
 
 _FORBIDDEN = re.compile(
-    r"^\s*(import|from)\s+(jax|flax|pyvisim_tpu)(\.|\s|$)", re.MULTILINE
+    r"^\s*(import|from)\s+(jax|flax|optax|orbax|pyvisim_tpu)(\.|\s|$)", re.MULTILINE
 )
 
 
@@ -74,6 +74,7 @@ def test_forbidden_pattern_spares_the_port_itself():
     assert _FORBIDDEN.search("import jax\n")
     assert not _FORBIDDEN.search("from pyvisim_tpu_torch.ops import x")
     assert not _FORBIDDEN.search("import jaxtyping")
+    assert _FORBIDDEN.search("import optax\n") and _FORBIDDEN.search("from orbax import checkpoint")
 
 
 @pytest.fixture
@@ -206,3 +207,20 @@ def test_kernel_probe_patches_lines_that_the_sources_have(source, table):
     for name, edits in variants.items():
         for old, _ in edits:
             assert old in text, f"{name}: {old!r}"
+
+
+def test_trainer_encoder_and_resnet_default_device_raise_without_cuda(no_cuda):
+    from pyvisim_tpu_torch.encoders import SiameseEncoder
+    from pyvisim_tpu_torch.features import DeepConvFeature
+    from pyvisim_tpu_torch.models.resnet import ResNetTrunk
+    from pyvisim_tpu_torch.models.siamese import SiameseEmbedder, adamw, create_train_state
+
+    model = SiameseEmbedder("vgg11", embed_dim=8, trunk_convs=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        create_train_state(model, adamw(1e-3))
+    state = create_train_state(model, adamw(1e-3), device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SiameseEncoder.from_train_state(model, state)
+    assert SiameseEncoder.from_train_state(model, state, device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DeepConvFeature(module=ResNetTrunk("resnet18", n_stages=1), image_size=32)
