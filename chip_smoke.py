@@ -59,6 +59,11 @@ Phases, each of which raises on a failed check:
       exactly where its plain version is and unchanged elsewhere, kernel 8
       (pooled and unpooled) NaN on all of that image, as its plain version,
       and bit for bit with it on the others, int32 sums included.
+   f. Kernels 1 and 2 on the golden fixtures that pin the JAX package
+      (``tests/testdata/golden_encodings.npz``): VLAD with and without the
+      power norm and Fisher vectors, at ``tests/test_golden.py``'s rtol
+      1e-5 and atol 1e-6; the one check that does not rest on the plain
+      versions.
 3. Slice 1: ``VLADEncoder(DeepConvFeature("vgg16", 224, bf16))`` with
    K=256 on 128 images, then retrieval of 8 of them from a gallery of all
    128.
@@ -143,6 +148,26 @@ Phases, each of which raises on a failed check:
    bit for bit); int8 against float32 descriptors at cosine > 0.995 per
    image. Prints the trunks' ms per 128 images, encode img/s, each int8
    route's ms beside its bound, and the int8 trunk's device profile.
+11. The clustering evaluation at Oxford Flowers-102's scale: a tree in the
+   dataset's layout (8,189 224^2 JPEGs of 102 synthetic scene classes,
+   ``labels.mat``, ``setid.mat``) in a temporary directory that
+   ``PYVISIM_TPU_TORCH_CACHE_DIR`` names, the download replaced by a
+   refusal; ``OxfordFlowerDataset(purpose="train")`` (6,149 images, its
+   labels as written) through ``iter_batches(128, 224)`` and phase 7's
+   int8 VLAD encoder (kernels 7, 8 and 1 as in phase 7 per batch), then
+   ``cluster_images_and_generate_statistics`` with 102 clusters by
+   K-Means on the 6,149 x 131,584 encodings, spectral clustering on them,
+   and spectral clustering on their cosine-similarity matrix. Gates:
+   kernel 3 launched once per Lloyd step of the three fits, and held
+   against its plain version on each fit's first step (D = 131,584 and
+   D = 102, K = 102); ``knn_affinity`` symmetric in {0, 0.5, 1} with a
+   unit diagonal, >= 11 nonzeros a row and equal to float64 on clear rows;
+   the embedding's columns eigenvectors of L_sym to 1e-3 with ascending
+   eigenvalues from 0; RI and ARI equal to a float64 contingency count to
+   1e-12; at most 102 clusters. Prints the scores, seconds per call, the
+   Lloyd step (queued and synced) and kernel 3 beside their bounds,
+   seeding, ``knn_affinity`` beside its bound, ``eigh``, decode ms per
+   image and encode img/s.
 
 Each slice resets the kernels' launch counts just before it and reads
 them just after.
@@ -154,11 +179,14 @@ outside a checkout, the script exits nonzero before printing results.
 from __future__ import annotations
 
 import json
+import os
 import pathlib
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -692,6 +720,40 @@ def check_gmm_rootsift(gs, call) -> dict:
     return {"ms": ms, "device_ms": prof["kernel_ms_per_call"], "plain_ms": plain_ms,
             "bound_ms": b["bound_ms"], "bound_by": b["bound_by"], "max_abs_err": err,
             "shape": f"rootsift fv B={b_} N={n_} D={d_} K={k_}, {n_valid} valid rows"}
+
+
+def golden_fixture_gate(agg, gs) -> dict:
+    """Phase 2f: kernels 1 and 2 on the golden fixtures that pin the JAX
+    package (``tests/testdata/golden_encodings.npz``, ``tests/test_golden.py``),
+    at its rtol 1e-5 and atol 1e-6: VLAD with and without the power norm,
+    Fisher vectors on the fixtures' GMM and on the shipped
+    ``gmm_k256_sift_pca.npz``. The one check on the card that does not rest
+    on the plain versions."""
+    from pyvisim_tpu_torch._config import MODEL_FILES_PATH
+    from pyvisim_tpu_torch.ops import GmmCodebook, fisher_encode, load_codebook, vlad_encode
+
+    with np.load(REPO / "tests" / "testdata" / "golden_encodings.npz") as f:
+        g = {k: torch.from_numpy(f[k]).cuda() for k in f.files}
+    gmm = GmmCodebook(weights=g["gmm_w"], means=g["gmm_m"], covariances=g["gmm_c"])
+    real = load_codebook(MODEL_FILES_PATH / "gmm_k256_sift_pca.npz").to("cuda")
+    n1, n2 = agg.vlad_aggregate_batched.launches, gs.gmm_stats_batched.launches
+    got = {
+        "vlad": vlad_encode(g["desc"], g["mask"], g["centers"]),
+        "vlad_p05": vlad_encode(g["desc"], g["mask"], g["centers"], power_norm_weight=0.5),
+        "fisher": fisher_encode(g["desc"], g["mask"], gmm),
+        "fisher_real": fisher_encode(g["desc_real"], None, real),
+    }
+    check(agg.vlad_aggregate_batched.launches == n1 + 2 and gs.gmm_stats_batched.launches == n2 + 2,
+          "the golden encodes did not launch kernels 1 and 2 twice each")
+    errs = {}
+    for name, out in got.items():
+        want = g[name].double()
+        diff = (out.double() - want).abs()
+        check(bool((diff <= 1e-6 + 1e-5 * want.abs()).all()),
+              f"golden {name}: max|diff| {float(diff.max())} beyond rtol 1e-5, atol 1e-6")
+        errs[name] = float(diff.max())
+    log(f"golden fixtures on kernels 1 and 2: max|diff| {errs}")
+    return errs
 
 
 def phase_lloyd_kernel(ls):
@@ -2739,10 +2801,394 @@ def phase_resnet(conv, agg, ls, images):
     return launches, numbers
 
 
+# Phase 11: the clustering evaluation of a gallery at Oxford Flowers-102's
+# scale (6,149 'tstid' images in 102 classes become the train split), in
+# the dataset's own layout, built from synthetic views.
+FLOWERS_CLASSES, FLOWERS_GALLERY, FLOWERS_SPLIT = 102, 6149, 10
+FLOWERS_BATCH = 128
+
+
+def flowers_tree(root: pathlib.Path) -> np.ndarray:
+    """Write ``oxford_flower_dataset/`` under ``root`` as Flowers-102 lays it
+    out: 8,189 JPEGs ``images/jpg/image_00001.jpg ...`` at 224^2,
+    ``labels.mat`` and ``setid.mat``. Class c holds 60 or 61 'tstid' views
+    of one synthetic scene (``make_class_images``, seed 100 + c, as
+    ``make_retrieval_corpus`` draws it), then 10 'trnid' and 10 'valid'
+    images, hard links to one further view (only the integrity check
+    counts them). Returns the 6,149 'tstid' labels (1-102) in ID order."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import cv2
+    import scipy.io
+
+    from pyvisim_tpu_torch.datasets import make_class_images
+
+    jpg = root / "oxford_flower_dataset" / "images" / "jpg"
+    jpg.mkdir(parents=True)
+    per = [FLOWERS_GALLERY // FLOWERS_CLASSES + (c < FLOWERS_GALLERY % FLOWERS_CLASSES)
+           for c in range(FLOWERS_CLASSES)]
+    first = np.cumsum([0] + [n + 2 * FLOWERS_SPLIT for n in per])[:-1] + 1
+
+    def write_class(c: int) -> None:
+        views = make_class_images(seed=100 + c, n=per[c] + 1, h=224, w=224)
+        for j in range(per[c] + 1):
+            ok = cv2.imwrite(str(jpg / f"image_{first[c] + j:05d}.jpg"), views[j][..., ::-1])
+            check(ok, f"could not write image {first[c] + j}")
+        shared = jpg / f"image_{first[c] + per[c]:05d}.jpg"
+        for j in range(per[c] + 1, per[c] + 2 * FLOWERS_SPLIT):
+            os.link(shared, jpg / f"image_{first[c] + j:05d}.jpg")
+
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        list(pool.map(write_class, range(FLOWERS_CLASSES)))
+    labels = np.concatenate([np.full(n + 2 * FLOWERS_SPLIT, c + 1) for c, n in enumerate(per)])
+    ids = {"tstid": [], "trnid": [], "valid": []}
+    for c, n in enumerate(per):
+        ids["tstid"] += range(first[c], first[c] + n)
+        ids["trnid"] += range(first[c] + n, first[c] + n + FLOWERS_SPLIT)
+        ids["valid"] += range(first[c] + n + FLOWERS_SPLIT, first[c] + n + 2 * FLOWERS_SPLIT)
+    base = root / "oxford_flower_dataset"
+    scipy.io.savemat(str(base / "labels.mat"), {"labels": labels.reshape(1, -1)})
+    scipy.io.savemat(str(base / "setid.mat"),
+                     {k: np.asarray(v).reshape(1, -1) for k, v in ids.items()})
+    return labels[np.asarray(ids["tstid"]) - 1]
+
+
+def f32_slack(d: int) -> float:
+    """The relative slack of a float32 squared distance over ``d``
+    dimensions: phase 8's 1e-5 (|x|^2 + |c|^2), or three rounding steps
+    grown with sqrt(d), as a sum of ``d`` products rounded in float32 errs,
+    where that is larger (6.5e-5 at d = 131,584)."""
+    return max(1e-5, 3 * 2.0**-24 * d**0.5)
+
+
+def lloyd_on_path_gate(ls, x, mask, centers, what: str) -> dict:
+    """Kernel 3 on the first Lloyd step's arguments of a fit of the path
+    against its plain version, at phase 2c's gates where these real rows
+    allow: each label equal to the plain argmin's or, for a near tie,
+    within ``f32_slack(D)`` (|x|^2 + |c|^2) of its float64 distance; the
+    sums within 1e-4 * max|ref| + 1e-5 and the counts equal to the plain
+    version's statistics under the kernel's labels (the plain version
+    itself where no label differs); two calls bit-equal; the inertia of
+    both within rel 1e-5 of the float64 inertia under the kernel's labels,
+    or within the float32 slack of its terms where that is larger. Timed
+    beside the plain version and its bound."""
+    from pyvisim_tpu_torch.ops import lloyd_step, pairwise_sqdist
+
+    got = ls.lloyd_stats(x, mask, centers, return_labels=True)
+    again = ls.lloyd_stats(x, mask, centers, return_labels=True)
+    ref = ls.lloyd_stats_reference(x, mask, centers, return_labels=True)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"{what}: kernel 3 does not repeat bit for bit")
+    labels, ref_labels = got[3], ref[3]
+    weighted = mask != 0
+    differ = (labels != ref_labels) & weighted
+    xd = x[differ].double()
+    c_got, c_ref = (centers[lab[differ].long()].double() for lab in (labels, ref_labels))
+    gap = ((xd - c_got) ** 2).sum(1) - ((xd - c_ref) ** 2).sum(1)
+    slack = f32_slack(x.shape[1]) * ((xd**2).sum(1) + (c_got**2).sum(1))
+    check(bool((gap <= slack).all()), f"{what}: {int((gap > slack).sum())} labels are not the "
+          "nearest center")
+    rest = labels[~weighted]
+    check(bool(((rest == -1) | (rest == ref_labels[~weighted])).all()),
+          f"{what}: a weightless row's label is neither -1 nor the plain argmin")
+
+    one_hot = F.one_hot(labels.clamp(min=0).long(), centers.shape[0]).to(x.dtype) * mask[:, None]
+    d2 = pairwise_sqdist(x, centers).gather(1, labels.clamp(min=0).long()[:, None])[:, 0]
+    want = (one_hot.T @ x, one_hot.sum(0), (d2.clamp_min(0.0) * mask).sum())
+    err = max_err(got[0], want[0], f"{what}: kernel 3 sums")
+    check(torch.equal(got[1], want[1]), f"{what}: kernel 3 counts differ")
+    # The inertia sums |x|^2 - 2 x.c + |c|^2 over the rows: each term errs by
+    # up to f32_slack(D) (|x|^2 + |c|^2) in float32, and at D = 131,584 that
+    # exceeds rel 1e-5 of the sum. So both are held to the float64 inertia
+    # under the kernel's labels, within rel 1e-5 or that slack summed.
+    lab = labels.clamp(min=0).long()
+    exact = scale = 0.0
+    for i in range(0, x.shape[0], 1024):
+        xd, cd, md = x[i:i + 1024].double(), centers[lab[i:i + 1024]].double(), mask[i:i + 1024]
+        exact += float((((xd - cd) ** 2).sum(1) * md).sum())
+        scale += float((((xd**2).sum(1) + (cd**2).sum(1)) * md).sum())
+    tol = max(1e-5 * exact, f32_slack(x.shape[1]) * scale)
+    inertia_err = {"kernel": float(got[2]) - exact, "plain": float(want[2]) - exact}
+    log(f"  {what}: inertia float64 {exact:.6f}, kernel {inertia_err['kernel']:+.3e}, plain "
+        f"{inertia_err['plain']:+.3e} (tol {tol:.3e})")
+    check(all(abs(e) <= tol for e in inertia_err.values()),
+          f"{what}: inertia off float64 by {inertia_err} > {tol}")
+    n, d = x.shape
+    k = centers.shape[0]
+    n_valid = int(weighted.sum())
+    lb = bound(2 * n_valid * k * d + 2 * n_valid * d, 4 * (n * d + n + 2 * k * d + k + 1))
+
+    def step_synced():
+        new, inertia = lloyd_step(x, mask, centers)
+        torch.stack([((new - centers) ** 2).sum(), inertia]).tolist()
+
+    rec = {"shape": f"N={n} D={d} K={k}", "max_abs_err": err, "near_tie_rows": int(differ.sum()),
+           "inertia_float64": exact, "inertia_err": inertia_err,
+           "ms": cuda_ms(lambda: ls.lloyd_stats(x, mask, centers), reps=5, rounds=5),
+           "plain_ms": cuda_ms(lambda: ls.lloyd_stats_reference(x, mask, centers), reps=5,
+                               rounds=5),
+           "step_queued_ms": cuda_ms(lambda: lloyd_step(x, mask, centers), reps=5, rounds=5),
+           "step_synced_ms": host_ms(step_synced), **lb}
+    log(f"  {what}: kernel 3 {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f}, bound "
+        f"{rec['bound_ms']:.4f} ({rec['bound_by']}); Lloyd step queued "
+        f"{rec['step_queued_ms']:.4f}, synced {rec['step_synced_ms']:.4f}")
+    return rec
+
+
+def knn_gate(x, a) -> dict:
+    """``knn_affinity``'s matrix ``a`` of the rows ``x``: symmetric, values in
+    {0, 0.5, 1}, a diagonal of 1, at least 11 nonzeros a row, and equal to
+    a float64 recomputation (stable order) wherever both the row and the
+    column are clear: their 11th and 12th nearest squared distances differ
+    by more than 1e-5 relative and by more than the float32 slack
+    (``f32_slack``) of the row's and the largest squared norm. A near tie
+    there may pick either."""
+    check(torch.equal(a, a.T), "knn_affinity is not symmetric")
+    check(bool(((a == 0) | (a == 0.5) | (a == 1)).all()), "knn_affinity has values "
+          "outside {0, 0.5, 1}")
+    check(bool((a.diagonal() == 1).all()), "knn_affinity's diagonal is not 1")
+    nnz = (a > 0).sum(1)
+    check(bool((nnz >= 11).all()), f"a row of knn_affinity has {int(nnz.min())} nonzeros")
+    xd = x.double()
+    sq = (xd * xd).sum(1)
+    d2 = sq[:, None] - 2.0 * (xd @ xd.T) + sq[None, :]
+    del xd
+    order = torch.sort(d2, dim=1, stable=True)
+    kept, dropped = order.values[:, 10], order.values[:, 11]
+    slack = f32_slack(x.shape[1]) * (sq + sq.max())
+    clear = ((dropped - kept) > 1e-5 * dropped.abs()) & ((dropped - kept) > slack)
+    raw = torch.zeros_like(d2)
+    raw.scatter_(1, order.indices[:, :11], 1.0)
+    raw.diagonal().fill_(1.0)
+    want = (0.5 * (raw + raw.T)).to(a.dtype)
+    both = clear[:, None] & clear[None, :]
+    diff = int(((a != want) & both).sum())
+    check(diff == 0, f"knn_affinity differs from float64 on {diff} entries of clear rows")
+    return {"clear_rows": int(clear.sum()), "min_nonzeros": int(nnz.min())}
+
+
+def embedding_gate(x, emb, a) -> dict:
+    """The spectral embedding's columns times sqrt(deg) are eigenvectors of
+    L_sym = I - D^-1/2 W D^-1/2 (float64): with lambda each column's
+    Rayleigh quotient, ||L v - lambda v||_inf / ||v||_inf <= 1e-3, and the
+    lambdas ascending (to 1e-5) from about 0."""
+    w = a.double()
+    dis = 1.0 / torch.sqrt(w.sum(1).clamp_min(1e-12))
+    lsym = -(w * dis[:, None] * dis[None, :])
+    lsym.diagonal().add_(1.0)
+    v = emb.double() / dis[:, None]
+    lv = lsym @ v
+    lam = (v * lv).sum(0) / (v * v).sum(0)
+    res = (lv - lam * v).abs().amax(0) / v.abs().amax(0)
+    check(bool((res <= 1e-3).all()), f"spectral embedding residual {float(res.max())} > 1e-3")
+    check(float(lam[0]) <= 1e-4 and bool((lam.diff() >= -1e-5).all()),
+          f"spectral embedding eigenvalues not ascending from 0: {lam[:5].tolist()}")
+    return {"max_residual": float(res.max()), "lambda_first": float(lam[0]),
+            "lambda_last": float(lam[-1])}
+
+
+def float64_pair_scores(a: np.ndarray, b: np.ndarray) -> dict:
+    """Rand and adjusted Rand index from a contingency table in float64."""
+    _, ia = np.unique(a, return_inverse=True)
+    _, ib = np.unique(b, return_inverse=True)
+    table = np.zeros((ia.max() + 1, ib.max() + 1))
+    np.add.at(table, (ia, ib), 1.0)
+    pairs = lambda m: (m * (m - 1) / 2).sum()  # noqa: E731
+    n = float(len(a))
+    total, cells = n * (n - 1) / 2, pairs(table)
+    rows, cols = pairs(table.sum(1)), pairs(table.sum(0))
+    expected = rows * cols / total
+    return {"ri": (total + 2 * cells - rows - cols) / total,
+            "ari": (cells - expected) / (0.5 * (rows + cols) - expected)}
+
+
+def phase_flowers(conv, agg, ls, enc, root: pathlib.Path):
+    """Phase 11: a Flowers-102 tree, ``OxfordFlowerDataset(purpose="train")``
+    encoded by phase 7's int8 VLAD encoder, then
+    ``cluster_images_and_generate_statistics`` three ways, through the
+    public entry points. ``root`` is the cache directory that
+    ``PYVISIM_TPU_TORCH_CACHE_DIR`` named before the port was imported."""
+    from pyvisim_tpu_torch import _utils
+    from pyvisim_tpu_torch.datasets import datasets as ds
+    from pyvisim_tpu_torch.ops import kmeans as kmeans_ops
+    from pyvisim_tpu_torch.ops import kmeans_plus_plus_init
+    from pyvisim_tpu_torch.ops import spectral as spectral_ops
+
+    t_phase = time.perf_counter()
+    check(pathlib.Path(ds._DATASET_ROOT) == root / "oxford_flower_dataset",
+          f"the dataset root {ds._DATASET_ROOT} is not phase 11's tree")
+    t0 = time.perf_counter()
+    tst_labels = flowers_tree(root)
+    tree_s = time.perf_counter() - t0
+
+    def refuse():
+        raise RuntimeError("phase 11's Flowers-102 tree failed the integrity check")
+
+    ds.download_oxford_flowers_data = refuse
+    data = ds.OxfordFlowerDataset(purpose="train")
+    check(len(data) == FLOWERS_GALLERY, f"train split has {len(data)} images")
+    check(np.array_equal(np.asarray(data.labels), tst_labels), "train labels differ")
+    labels = np.asarray(data.labels)
+
+    wrappers = {"k7": conv.conv3x3_relu_maxpool, "k8_pooled": conv.conv3x3_relu_maxpool_q8,
+                "k8_unpooled": conv.conv3x3_q8, "vlad": agg.vlad_aggregate_batched,
+                "lloyd": ls.lloyd_stats}
+    for w in wrappers.values():
+        w.launches = 0
+    # Each fit's Lloyd steps and its first step's arguments, recorded on the
+    # way; the wrappers call the originals and launch nothing themselves.
+    steps, first_steps, fit_open = [], [], [False]
+    saved = kmeans_ops.lloyd_step, kmeans_ops.kmeans_fit, spectral_ops.kmeans_fit
+
+    def counted_step(x, mask, centers, chunk_size=None):
+        steps[-1] += 1
+        if fit_open[0]:
+            first_steps.append((x, mask, centers))
+            fit_open[0] = False
+        return saved[0](x, mask, centers, chunk_size)
+
+    def opened_fit(*args, **kwargs):
+        fit_open[0] = True
+        steps.append(0)
+        return saved[1](*args, **kwargs)
+
+    kmeans_ops.lloyd_step, kmeans_ops.kmeans_fit, spectral_ops.kmeans_fit = (
+        counted_step, opened_fit, opened_fit)
+    try:
+        encodings = np.empty((FLOWERS_GALLERY, K * D), np.float32)
+        decode_s = encode_s = 0.0
+        at, batches = 0, iter(data.iter_batches(FLOWERS_BATCH, 224))
+        t_enc = time.perf_counter()
+        while True:
+            t0 = time.perf_counter()
+            batch = next(batches, None)
+            decode_s += time.perf_counter() - t0
+            if batch is None:
+                break
+            imgs, batch_labels, _ = batch
+            before = {n: w.launches for n, w in wrappers.items()}
+            t0 = time.perf_counter()
+            encodings[at : at + len(imgs)] = enc.encode(imgs)
+            encode_s += time.perf_counter() - t0
+            per = {n: w.launches - before[n] for n, w in wrappers.items() if n != "lloyd"}
+            check(per == {"k7": 2, "k8_pooled": 2, "k8_unpooled": 4, "vlad": 1},
+                  f"an encode of {len(imgs)} images ran {per}")
+            check(np.array_equal(batch_labels, labels[at : at + len(imgs)]), "batch labels")
+            at += len(imgs)
+        encode_e2e_s = time.perf_counter() - t_enc
+        check(at == FLOWERS_GALLERY and bool(np.isfinite(encodings).all()),
+              f"encoded {at} images, or non-finite encodings")
+        runs, cluster_labels = {}, []
+        saved_labels = _utils.cluster_and_return_labels
+
+        def recorded(*args, **kwargs):
+            out = saved_labels(*args, **kwargs)
+            cluster_labels.append(out)
+            return out
+
+        _utils.cluster_and_return_labels = recorded
+        try:
+            for name, method, feats in (("kmeans", "kmeans", lambda: encodings),
+                                        ("spectral", "spectral", lambda: encodings),
+                                        ("spectral_cosine", "spectral",
+                                         lambda: _utils.cosine_similarity(encodings, encodings))):
+                features = feats()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                scores = _utils.cluster_images_and_generate_statistics(
+                    features, labels, FLOWERS_CLASSES, method=method)
+                torch.cuda.synchronize()
+                runs[name] = {**scores, "s": time.perf_counter() - t0}
+                log(f"flowers102 {name}: {runs[name]}")
+                del features
+        finally:
+            _utils.cluster_and_return_labels = saved_labels
+    finally:
+        kmeans_ops.lloyd_step, kmeans_ops.kmeans_fit, spectral_ops.kmeans_fit = saved
+    launches = {n: w.launches for n, w in wrappers.items()}
+    log(f"flowers102: launches {launches}, Lloyd steps of each fit {steps}")
+    check(all(launches.values()), f"phase 11 did not launch every kernel: {launches}")
+    check(launches["lloyd"] == sum(steps), f"kernel 3 launched {launches['lloyd']} times for "
+          f"{sum(steps)} Lloyd steps")
+    batches_run = -(-FLOWERS_GALLERY // FLOWERS_BATCH)
+    check(launches["vlad"] == batches_run, f"{launches['vlad']} VLAD launches")
+    check(len(first_steps) == 3, f"{len(first_steps)} K-Means fits recorded")
+
+    # The gates and measurements, outside the launch counts.
+    for (name, rec), out in zip(runs.items(), cluster_labels):
+        check(out.shape == (FLOWERS_GALLERY,) and 0 <= out.min() and out.max() < FLOWERS_CLASSES
+              and len(np.unique(out)) <= FLOWERS_CLASSES, f"{name}: labels out of range")
+        ref = float64_pair_scores(labels, out)
+        for key in ("ri", "ari"):
+            check(abs(rec[key] - ref[key]) <= 1e-12,
+                  f"{name}: {key} {rec[key]} against float64 {ref[key]}")
+        rec["clusters"] = int(len(np.unique(out)))
+    kernel3 = {f"{name} D={x.shape[1]}": lloyd_on_path_gate(ls, x, m, c, f"flowers102 {name}")
+               for (x, m, c), name in zip(first_steps, runs)}
+    x = first_steps[0][0]
+    ones = torch.ones((x.shape[0],), device="cuda")
+    gen = torch.Generator(device="cuda")
+    seed_ms = host_ms(lambda: kmeans_plus_plus_init(gen.manual_seed(0), x, FLOWERS_CLASSES,
+                                                    ones)[0, 0].item(), reps=2)
+    knn_ms = cuda_ms(lambda: spectral_ops.knn_affinity(x, 10), reps=1, rounds=3, warmup=1)
+    n = x.shape[0]
+    knn_bound = bound(2 * n * n * x.shape[1], 4 * (n * x.shape[1] + n * n))
+    a = spectral_ops.knn_affinity(x, 10)
+    knn = knn_gate(x, a)
+    emb = spectral_ops.spectral_embedding(x, FLOWERS_CLASSES)
+    spectral = embedding_gate(x, emb, a)
+    dis = 1.0 / torch.sqrt(a.sum(1))
+    lsym = -(a * dis[:, None] * dis[None, :])
+    lsym.diagonal().add_(1.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.linalg.eigh(lsym)
+    torch.cuda.synchronize()
+    eigh_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    torch.from_numpy(encodings).cuda()
+    torch.cuda.synchronize()
+    h2d_ms = (time.perf_counter() - t0) * 1e3
+    numbers = {
+        "gallery": FLOWERS_GALLERY, "classes": FLOWERS_CLASSES, "dim": K * D,
+        "tree_s": tree_s, "decode_ms_per_image": decode_s / FLOWERS_GALLERY * 1e3,
+        "encode_img_per_s": FLOWERS_GALLERY / encode_s,
+        "encode_e2e_img_per_s": FLOWERS_GALLERY / encode_e2e_s,
+        "encodings_gb": encodings.nbytes / 1e9, "encodings_h2d_pageable_ms": h2d_ms,
+        "runs": runs, "lloyd_steps_per_fit": steps, "kernel3": kernel3,
+        "kmeans_pp_seed_ms": seed_ms, "knn_affinity_ms": knn_ms,
+        "knn_affinity_bound_ms": knn_bound["bound_ms"], "knn": knn,
+        "eigh_ms": eigh_ms, "embedding": spectral,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    for name, rec in runs.items():
+        log(f"flowers102 {name}: RI {rec['ri']:.6f} ARI {rec['ari']:.6f} AMI {rec['nmi']:.6f}, "
+            f"{rec['clusters']} clusters, {rec['s']:.2f} s")
+    log(f"flowers102: decode {numbers['decode_ms_per_image']:.3f} ms/img, encode "
+        f"{numbers['encode_img_per_s']:.1f} img/s ({numbers['encode_e2e_img_per_s']:.1f} with "
+        f"decoding), seeding {seed_ms:.1f} ms, knn_affinity {knn_ms:.1f} ms (bound "
+        f"{knn_bound['bound_ms']:.1f}), eigh {eigh_ms:.1f} ms, encodings to the card "
+        f"{h2d_ms:.1f} ms")
+    log(json.dumps({"flowers102": numbers, "launches": launches}))
+    return launches, numbers
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    # Phase 11's dataset tree. The port reads the variable when it is first
+    # imported, so it is set before any import of it.
+    flowers_root = pathlib.Path(tempfile.mkdtemp(prefix="pyvisim_flowers_"))
+    os.environ["PYVISIM_TPU_TORCH_CACHE_DIR"] = str(flowers_root)
+    try:
+        return run(flowers_root)
+    finally:
+        shutil.rmtree(flowers_root, ignore_errors=True)
+
+
+def run(flowers_root: pathlib.Path) -> int:
     sys.path.insert(0, str(REPO))
     from pyvisim_tpu_torch.ops.cuda import _build
     from pyvisim_tpu_torch.ops.cuda import aggregate as agg
@@ -2757,6 +3203,9 @@ def main() -> int:
     vlad_rootsift_call, gmm_rootsift_call = rootsift_encode_calls()
     kernel["rootsift_vlad"] = check_vlad_rootsift(agg, ls, vlad_rootsift_call)
     gmm_kernel = phase_gmm_kernel(gs, shipped_gmm(), gmm_rootsift_call)
+    golden = golden_fixture_gate(agg, gs)
+    kernel["golden_max_abs_err"] = {k: v for k, v in golden.items() if k.startswith("vlad")}
+    gmm_kernel["golden_max_abs_err"] = {k: v for k, v in golden.items() if k.startswith("fisher")}
     del vlad_rootsift_call, gmm_rootsift_call
     lloyd_kernel = phase_lloyd_kernel(ls)
     sift_kernels = phase_sift_kernels(sw)
@@ -2807,6 +3256,13 @@ def main() -> int:
     k8["launches_per_resnet50_int8_encode_of_128"] = R50_K8
     k8["resnet50_calls"] = {key: rec for key, rec in numbers10["int8_routes"].items()
                             if key.startswith("k8")}
+    torch.cuda.empty_cache()
+    launches11, numbers11 = phase_flowers(conv, agg, ls, enc8, flowers_root)
+    lloyd_kernel["launches_clustering"] = launches11["lloyd"]
+    lloyd_kernel["flowers102"] = numbers11["kernel3"]
+    kernel["launches_flowers102"] = launches11["vlad"]
+    k7["launches_flowers102"] = launches11["k7"]
+    k8["launches_flowers102"] = launches11["k8_pooled"] + launches11["k8_unpooled"]
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [kernel, gmm_kernel, lloyd_kernel, *sift_kernels, k7, k8]}))
     print(json.dumps({

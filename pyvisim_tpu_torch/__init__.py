@@ -4,7 +4,8 @@ The same image-similarity library (deep features, VLAD and Fisher-vector
 encoders and their Pipeline, on-device vocabulary learning with K-Means,
 GMM and PCA, cosine retrieval and its evaluation, gallery I/O and the
 serving index, the retrieval losses, ResNet trunks and the Siamese
-embedding trainer with its checkpoints) in PyTorch, with the JAX
+embedding trainer with its checkpoints, the Oxford Flowers-102 dataset,
+spectral clustering and the clustering evaluation) in PyTorch, with the JAX
 package's TPU kernels rewritten as CUDA kernels for Hopper. The module layout
 follows ``pyvisim_tpu`` so that each counterpart is found by name.
 

@@ -17,10 +17,26 @@ ROOT = pathlib.Path(__file__).parent
 MODEL_FILES_PATH = ROOT.parent / "pyvisim_tpu" / "res" / "model_files"
 
 _LOG_DIR_ENV = "PYVISIM_TPU_TORCH_LOG_DIR"
+_CACHE_DIR_ENV = "PYVISIM_TPU_TORCH_CACHE_DIR"
 
 
 def log_dir() -> pathlib.Path:
     return pathlib.Path(os.environ.get(_LOG_DIR_ENV, str(ROOT.parent / "res" / "logs")))
+
+
+def cache_dir() -> pathlib.Path:
+    """Root cache directory for datasets: ``$PYVISIM_TPU_TORCH_CACHE_DIR``,
+    else the JAX package's default (``platformdirs.user_cache_dir
+    ("pyvisim_tpu")``, or ``~/.cache/pyvisim_tpu`` without platformdirs), so
+    that one download serves both packages."""
+    env = os.environ.get(_CACHE_DIR_ENV)
+    if env:
+        return pathlib.Path(env)
+    try:
+        from platformdirs import user_cache_dir
+    except ImportError:
+        return pathlib.Path.home() / ".cache" / "pyvisim_tpu"
+    return pathlib.Path(user_cache_dir("pyvisim_tpu"))
 
 
 _LOGGING_CONFIGURED = False

@@ -17,7 +17,6 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 __all__ = [
@@ -239,7 +238,8 @@ def margin_softmax_loss(
     w = _l2n(class_weights)
     cos = torch.clamp(z @ w.T, -1.0 + 1e-7, 1.0 - 1e-7)  # (B, C)
     labels = torch.as_tensor(labels, device=z.device).long()
-    one_hot = F.one_hot(labels, w.shape[0]).to(cos.dtype)
+    # A label outside [0, C) gets an all-zero row, as jax.nn.one_hot gives it.
+    one_hot = (labels[:, None] == torch.arange(w.shape[0], device=z.device)).to(cos.dtype)
     if kind == "arcface":
         cos_margin = torch.cos(torch.arccos(cos) + margin)
     elif kind == "cosface":

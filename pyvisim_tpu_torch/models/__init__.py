@@ -2,7 +2,7 @@
 from . import quant, resnet, siamese, vgg
 from .quant import QuantConv
 from .resnet import ResNetTrunk
-from .vgg import VGGConvFeatures, params_from_jax
+from .vgg import VGGConvFeatures, init_params, params_from_jax
 
 __all__ = ["quant", "vgg", "resnet", "siamese", "QuantConv", "VGGConvFeatures", "ResNetTrunk",
-           "params_from_jax"]
+           "init_params", "params_from_jax"]

@@ -46,7 +46,23 @@ _STAGE_WIDTHS = (64, 128, 256, 512)
 
 class FrozenBatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` (eps 1e-5, torchvision's keys) that normalises by
-    its running statistics in every mode."""
+    its running statistics in every mode.
+
+    Its scale, shift and statistics stay float32 under ``Module.to(dtype)``,
+    as Flax's ``nn.BatchNorm(dtype=...)`` keeps its own: ``batch_norm``
+    then takes a bf16 map with float32 parameters, normalises it in float32
+    and rounds the result once to bf16, in one pass."""
+
+    _FLOAT32 = ("weight", "bias", "running_mean", "running_var")
+
+    def _apply(self, fn, recurse=True):
+        kept = {n: getattr(self, n).data for n in self._FLOAT32}
+        super()._apply(fn, recurse)
+        for name, old in kept.items():
+            new = getattr(self, name)
+            if new.dtype != old.dtype:
+                new.data = old.to(new.device)
+        return self
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,

@@ -35,6 +35,7 @@ from .quant import QuantConv
 __all__ = [
     "VGG_CFGS",
     "VGGConvFeatures",
+    "init_params",
     "params_from_jax",
     "num_conv_layers",
     "conv_out_channels",
@@ -216,6 +217,23 @@ class VGGConvFeatures(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.features(x)
+
+
+def init_params(
+    cfg_name: str = "vgg16",
+    layer_index: int = -1,
+    seed: int = 0,
+    image_size: int = 224,
+    dtype: torch.dtype = torch.float32,
+) -> Dict[str, torch.Tensor]:
+    """A trunk's float32 state dict, the form :meth:`VGGConvFeatures.load_params`
+    takes, drawn as Flax's ``nn.Conv`` draws (lecun-normal kernels, zero
+    biases) from ``torch.Generator().manual_seed(seed)``. The values differ
+    from the JAX package's draws for the same seed. ``image_size`` and
+    ``dtype`` change nothing, as in the JAX package, whose parameters are
+    float32 for every compute dtype and input size."""
+    gen = torch.Generator().manual_seed(seed)
+    return VGGConvFeatures(cfg_name, layer_index, generator=gen).state_dict()
 
 
 def params_from_jax(params: Mapping, cfg_name: str = "vgg16") -> Dict[str, torch.Tensor]:

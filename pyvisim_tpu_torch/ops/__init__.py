@@ -1,7 +1,8 @@
 """pyvisim_tpu_torch.ops — functional compute cores in PyTorch.
 
 Port of ``pyvisim_tpu/ops`` for deep features and SIFT/RootSIFT (``ops.sift``)
--> VLAD / Fisher vectors -> retrieval and vocabulary training. The TPU kernels on those paths are CUDA
+-> VLAD / Fisher vectors -> retrieval, vocabulary training and spectral
+clustering. The TPU kernels on those paths are CUDA
 kernels in ``ops/cuda``, the fused conv + ReLU + pool kernels of the int8
 VGG trunk (``ops.cuda.conv``) among them.
 """
@@ -22,6 +23,7 @@ from .kmeans import kmeans_fit, kmeans_plus_plus_init, lloyd_step
 from .gmm import em_step, gmm_fit
 from .pca import pca_fit, projector_from_moments
 from .gaussian import gaussian_blur, gaussian_blur_batch
+from .spectral import knn_affinity, spectral_cluster, spectral_embedding
 
 __all__ = [
     "GmmCodebook",
@@ -54,4 +56,7 @@ __all__ = [
     "projector_from_moments",
     "gaussian_blur",
     "gaussian_blur_batch",
+    "spectral_embedding",
+    "spectral_cluster",
+    "knn_affinity",
 ]

@@ -1234,3 +1234,99 @@ def test_siamese_step_on_card_matches_cpu(cuda_device):
     assert abs(lg - lc) <= 1e-5 * abs(lc)
     for k in gc:
         assert (gg[k] - gc[k]).abs().max() <= 1e-3 * gc[k].abs().max(), k
+
+
+# Phase 11's Lloyd shapes, the rows cut to 1,024: K = 102 is no multiple of
+# the 128-center tile and D = 102 none of the 16-deep stage; D = 131,584 is
+# the VGG16 VLAD encoding's width.
+@pytest.mark.parametrize("d", [102, 131584])
+def test_lloyd_kernel_at_the_clustering_shapes(cuda_device, d):
+    """As ``test_lloyd_kernel_matches_plain_version``, but the inertia of
+    both against the float64 inertia: within rel 1e-5, or where it is
+    larger within three float32 rounding steps grown with sqrt(D) of each
+    row's |x|^2 + |c|^2, the terms whose difference the squared distance
+    is. At D = 131,584 that slack is the larger: the two float32 sums
+    differ by ~4e-4 relative."""
+    n, k = 1024, 102
+    g = torch.Generator(device=cuda_device).manual_seed(d)
+    protos = torch.randn(k, d, device=cuda_device, generator=g)
+    labels = torch.randint(0, k, (n,), device=cuda_device, generator=g)
+    desc = protos[labels] + 0.1 * torch.randn(n, d, device=cuda_device, generator=g)
+    centers = protos + 0.01 * torch.randn(k, d, device=cuda_device, generator=g)
+    mask = (torch.rand(n, device=cuda_device, generator=g) > 0.1).float()
+    mask[0] = 0.375
+    got = tls.lloyd_stats(desc, mask, centers, return_labels=True)
+    want = tls.lloyd_stats_reference(desc, mask, centers, return_labels=True)
+    torch.cuda.synchronize()
+    _labels_agree(got[3], want[3], mask)
+    _close(got[0], want[0], "sums")
+    assert torch.equal(got[1], want[1])
+    xd, cd = desc.double(), centers[got[3].clamp(min=0).long()].double()
+    exact = float((((xd - cd) ** 2).sum(1) * mask).sum())
+    terms = float((((xd**2).sum(1) + (cd**2).sum(1)) * mask).sum())
+    tol = max(1e-5 * exact, 3 * 2.0**-24 * d**0.5 * terms)
+    assert abs(float(got[2]) - exact) <= tol and abs(float(want[2]) - exact) <= tol
+    again = tls.lloyd_stats(desc, mask, centers, return_labels=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_spectral_on_card_matches_cpu(cuda_device):
+    """N = 512 rows in 8 separate blobs: the kNN affinity equal to the CPU's
+    on every row whose kept and dropped distances differ by more than 1e-5
+    relative, and the projector of the 8 columns that span eigenvalue 0
+    (8 components) within 1e-4."""
+    from pyvisim_tpu_torch.ops import spectral as tspectral
+
+    rng = np.random.default_rng(11)
+    centers = rng.normal(scale=20.0, size=(8, 16))
+    x = torch.from_numpy((centers[np.arange(512) % 8] + rng.normal(size=(512, 16)))
+                         .astype(np.float32))
+    xd = x.double()
+    d2 = torch.sort(torch.cdist(xd, xd) ** 2, dim=1).values
+    clear = (d2[:, 11] - d2[:, 10]) > 1e-5 * d2[:, 11]
+    got = tspectral.knn_affinity(x.to(cuda_device), 10).cpu()
+    want = tspectral.knn_affinity(x, 10)
+    assert int(clear.sum()) > 400
+    assert torch.equal(got[clear], want[clear])
+    e_card = tspectral.spectral_embedding(x.to(cuda_device), 8).cpu().double()
+    e_cpu = tspectral.spectral_embedding(x, 8).double()
+    assert (e_card @ e_card.T - e_cpu @ e_cpu.T).abs().max() <= 1e-4
+
+
+@pytest.mark.parametrize("method", ["kmeans", "spectral"])
+def test_cluster_and_return_labels_on_card(cuda_device, method):
+    from pyvisim_tpu_torch._utils import cluster_and_return_labels
+
+    before = tls.lloyd_stats.launches
+    x = np.random.default_rng(12).normal(size=(1024, 64)).astype(np.float32)
+    labels = cluster_and_return_labels(x, method=method, n_clusters=102)
+    assert labels.shape == (1024,) and labels.dtype == np.int32
+    assert 0 <= labels.min() and labels.max() < 102 and len(np.unique(labels)) <= 102
+    assert tls.lloyd_stats.launches > before
+
+
+def test_kernels_1_and_2_match_the_golden_fixtures(cuda_device):
+    """Kernels 1 and 2 on the fixtures that pin the JAX package
+    (``tests/test_golden.py``), at its rtol 1e-5 and atol 1e-6: a check on
+    the card that does not rest on the plain versions."""
+    import pathlib
+
+    from pyvisim_tpu_torch._config import MODEL_FILES_PATH
+    from pyvisim_tpu_torch.ops import GmmCodebook, fisher_encode, load_codebook, vlad_encode
+
+    with np.load(pathlib.Path(__file__).parent / "testdata" / "golden_encodings.npz") as f:
+        g = {k: torch.from_numpy(f[k]).to(cuda_device) for k in f.files}
+    gmm = GmmCodebook(weights=g["gmm_w"], means=g["gmm_m"], covariances=g["gmm_c"])
+    real = load_codebook(MODEL_FILES_PATH / "gmm_k256_sift_pca.npz").to(cuda_device)
+    v0, f0 = tagg.vlad_aggregate_batched.launches, tgs.gmm_stats_batched.launches
+    got = {
+        "vlad": vlad_encode(g["desc"], g["mask"], g["centers"]),
+        "vlad_p05": vlad_encode(g["desc"], g["mask"], g["centers"], power_norm_weight=0.5),
+        "fisher": fisher_encode(g["desc"], g["mask"], gmm),
+        "fisher_real": fisher_encode(g["desc_real"], None, real),
+    }
+    assert tagg.vlad_aggregate_batched.launches == v0 + 2
+    assert tgs.gmm_stats_batched.launches == f0 + 2
+    for name, out in got.items():
+        np.testing.assert_allclose(out.cpu().numpy(), g[name].cpu().numpy(), rtol=1e-5,
+                                   atol=1e-6, err_msg=name)

@@ -39,7 +39,8 @@ def test_importing_every_module_loads_no_jax_and_no_jax_package():
     for sub in pyvisim_tpu_torch.__all__:
         assert f"pyvisim_tpu_torch.{sub}" in names
     for mod in ("io._loader", "io._prefetch", "datasets.synthetic", "losses._losses",
-                "models.resnet", "models.siamese", "encoders.siamese"):
+                "models.resnet", "models.siamese", "encoders.siamese", "ops.spectral",
+                "datasets.datasets", "_utils"):
         assert f"pyvisim_tpu_torch.{mod}" in names
     assert bad == []
 
@@ -224,3 +225,21 @@ def test_trainer_encoder_and_resnet_default_device_raise_without_cuda(no_cuda):
     assert SiameseEncoder.from_train_state(model, state, device="cpu").device.type == "cpu"
     with pytest.raises(RuntimeError, match="CUDA"):
         DeepConvFeature(module=ResNetTrunk("resnet18", n_stages=1), image_size=32)
+
+
+def test_clustering_blur_and_dice_default_device_raise_without_cuda(no_cuda):
+    from pyvisim_tpu_torch import _utils
+    from pyvisim_tpu_torch.ops import spectral_cluster
+
+    x = np.random.default_rng(0).normal(size=(30, 4)).astype(np.float32)
+    img = np.zeros((16, 16, 3), np.uint8)
+    for make in (lambda: spectral_cluster(x, 2),
+                 lambda: _utils.cluster_and_return_labels(x, "kmeans", 2),
+                 lambda: _utils.cluster_and_return_labels(x, "spectral", 2),
+                 lambda: _utils.cluster_images_and_generate_statistics(x, np.zeros(30), 2),
+                 lambda: _utils.gaussian_blur(img),
+                 lambda: _utils.soft_dice_score(x, x)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    assert spectral_cluster(x, 2, device="cpu").shape == (30,)
+    assert _utils.gaussian_blur(img, device="cpu").shape == img.shape

@@ -149,3 +149,22 @@ def test_margin_softmax_loss_matches_jax(kind):
                  rtol=1e-4, atol=1e-5)
     with pytest.raises(ValueError, match="Unknown margin-softmax kind"):
         tl.margin_softmax_loss(torch.from_numpy(emb), labels, torch.from_numpy(w), kind="sphere")
+
+
+@pytest.mark.parametrize("kind", ["arcface", "cosface"])
+@pytest.mark.parametrize("stray", [-1, 4])
+def test_margin_softmax_loss_takes_labels_outside_the_classes(kind, stray):
+    """A label outside [0, C) gets an all-zero one-hot row, as
+    ``jax.nn.one_hot`` gives it: the row adds nothing to the sum but counts
+    in the mean. Default scale; loss to rel 1e-5, gradients to 1e-5 of the
+    largest."""
+    emb, w = _emb(11, b=6), _emb(12, b=4)
+    labels = np.array([0, 1, 2, 3, stray, 1])
+    jfn = lambda e, cw: jl.margin_softmax_loss(e, labels, cw, kind=kind)
+    tfn = lambda e, cw: tl.margin_softmax_loss(e, torch.from_numpy(labels), cw, kind=kind)
+    for pair in (_value_and_grad_pair(jfn, tfn, emb, w),
+                 _value_and_grad_pair(lambda cw, e: jfn(e, cw), lambda cw, e: tfn(e, cw), w, emb)):
+        jv, jg, tv, tg = pair
+        np.testing.assert_allclose(tv, jv, rtol=1e-5, atol=0)
+        np.testing.assert_allclose(tg, jg, rtol=0, atol=1e-5 * np.abs(jg).max())
+        assert np.abs(jg).max() > 0

@@ -262,3 +262,50 @@ def test_int8_scales_follow_the_device_as_jax_follows_jit():
     amax = torch.from_numpy(np.abs(x).max(axis=(1, 2, 3)))
     np.testing.assert_array_equal(torch.clamp_min(amax * (1.0 / 127.0), 1e-8).numpy(), jitted)
     assert 0 < (eager != jitted).mean() < 0.1
+
+
+def _jax_variables_wide_bn(cfg, n_stages, seed=0):
+    """As :func:`_jax_variables`, with BatchNorm far from its default: mean
+    N(0, 1), var e^N(0, 1), scale 1 + 0.2 N and bias 0.2 N. Where the
+    statistics are 0 and 1, a BatchNorm rounded to bf16 is exact."""
+    rng = np.random.default_rng(seed + 1)
+    draws = {"mean": lambda s: rng.normal(size=s), "var": lambda s: np.exp(rng.normal(size=s)),
+             "scale": lambda s: 1 + 0.2 * rng.normal(size=s),
+             "bias": lambda s: 0.2 * rng.normal(size=s)}
+
+    def draw(path, leaf):
+        name = path[-1].key
+        return leaf if name == "kernel" else draws[name](leaf.shape).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(draw, _jax_variables(cfg, n_stages, seed))
+
+
+def test_bf16_trunk_keeps_batch_norm_in_float32():
+    """The bf16 trunk against JAX's ``ResNetTrunk(dtype=bfloat16)``, each
+    held against JAX's float32 trunk: 1 - cosine per image, the port's at
+    most 1.1 times JAX's. Flax keeps BatchNorm's parameters and statistics
+    in float32 and rounds its output once; so must the port, after
+    ``Module.to(bfloat16)``.
+
+    JAX's side is compiled with ``xla_allow_excess_precision`` off, so that
+    XLA rounds every bf16 result as the trunk's dtype says (and as cuDNN
+    does on the card); with it on, XLA on the CPU keeps the conv outputs in
+    float32 into BatchNorm."""
+    cfg, n_stages = "resnet18", 4
+    variables = _jax_variables_wide_bn(cfg, n_stages)
+    x = _images(b=4)
+    want = np.asarray(jax.jit(jresnet.ResNetTrunk(cfg_name=cfg, n_stages=n_stages).apply)(
+        variables, x))
+    j16 = jax.jit(jresnet.ResNetTrunk(cfg_name=cfg, n_stages=n_stages, dtype=jnp.bfloat16).apply)
+    j16 = j16.lower(variables, x).compile(compiler_options={"xla_allow_excess_precision": False})
+    jax_bf16 = np.asarray(j16(variables, x).astype(jnp.float32))
+    model = _port_trunk(cfg, n_stages, variables).to(torch.bfloat16)
+    for name in ("weight", "bias", "running_mean", "running_var"):
+        assert getattr(model.layer1[0].bn1, name).dtype == torch.float32
+    with torch.no_grad():
+        y = model(torch.from_numpy(x).permute(0, 3, 1, 2).to(torch.bfloat16))
+    assert y.dtype == torch.bfloat16
+    port = y.float().permute(0, 2, 3, 1).numpy()
+    jax_gap, port_gap = 1 - _cosines(jax_bf16, want), 1 - _cosines(port, want)
+    assert (jax_gap > 0).all()
+    assert (port_gap <= 1.1 * jax_gap).all(), (port_gap, jax_gap)
