@@ -169,6 +169,44 @@ Phases, each of which raises on a failed check:
    seeding, ``knn_affinity`` beside its bound, ``eigh``, decode ms per
    image and encode img/s.
 
+12. The mesh paths (``pyvisim_tpu_torch.parallel``) in two worlds of
+   ranks, each spawned once (``parallel.local.LocalWorld``) and running
+   every step: one rank under NCCL, and two ranks sharing the card under
+   gloo (NCCL refuses two ranks on one card; gloo's collectives take the
+   card's tensors through pinned host memory). Meshes: 'data' over the
+   world, and 'data' x 'cluster' and 'data' x 'model' of 1 x the world.
+   Steps, each also run on the single card in this process:
+   ``distributed_kmeans_fit`` (10 Lloyd steps) on slice 1's 25,088 x 514
+   descriptors from kmeans_fit's own k-means++ seeding, K=256;
+   ``distributed_pca_fit`` to 257; ``distributed_gmm_fit`` (10 EM steps,
+   K=256) on the descriptors after the shipped PCA from the shipped GMM's
+   means; ``VLADEncoder`` and ``FisherVectorEncoder`` on
+   ``DeepConvFeature(int8, mesh=)`` over phase 3's 128 images;
+   ``cluster_sharded_vlad_encode`` and ``cluster_sharded_fisher_encode``;
+   ``sharded_sift_batch`` on phase 6's 64 images; ``RetrievalIndex(mesh=)``
+   in float32 and int8 on a 6,149 x 131,584 gallery drawn on the card from
+   a seed, Q=1 and Q=8; the sharded Siamese VGG16 trainer at 224^2, B=32,
+   3 steps in float32 (``cudnn.deterministic``), data-parallel and
+   tensor-parallel. Gates: on one rank, K-Means, GMM, both encoders and
+   SIFT bit for bit, launches per step equal; on two ranks K-Means
+   inertia to rel 1e-5 a step and centers to 1e-4 * max|ref| + 1e-5
+   (clusters that a near-tie row changes excused), GMM weights and means
+   to 1e-4 of their largest, covariances to 1e-4 of the largest raw second
+   moment (cov + mean^2, whose sums round) and log-likelihood to rel 1e-5, encodings to 1e-5 with
+   1 - cos <= 1e-6 a row, SIFT bit for bit; in both: PCA mean to 1e-5 *
+   max|mean|, variances to 1e-4 of the largest, separated components at
+   cos >= 1 - 1e-4; cluster-sharded VLAD against the plain aggregation
+   (images with a near-tie descriptor excused) and FV against kernel 2's
+   encode at the encodings' gate; index ids equal in order and scores to
+   1e-6; DP losses to rel 1e-5 (one rank, first loss bit for bit) or 1e-4
+   (two) of the single card's, TP to rel 1e-5 of the single card's and of
+   DP's first two steps, and 1e-4 of DP's third; every rank launched every
+   kernel. Two ranks' encoders are held against the single card's
+   encodes of the same 64-image blocks (the int8 trunk's encodings depend
+   on the batch size); the gap to one encode of all 128 is printed. Prints each step's seconds and staged bytes per rank, and
+   kernels 3 and 2 and a Q=1 query per rank beside the single card; two
+   ranks on one card measure cost per rank, not scaling.
+
 Each slice resets the kernels' launch counts just before it and reads
 them just after.
 
@@ -604,6 +642,51 @@ def check_vlad_rootsift(agg, ls, call) -> dict:
             "shape": f"rootsift B={b_} N={n_} D={d_} K={k_}, {n_valid} valid rows"}
 
 
+def gmm_ll_float64(desc, mask, weights, means, covariances):
+    """Kernel 2's masked log-likelihood per set in float64, and the scale
+    of its float32 rounding: the sum over rows of the two squares that the
+    matmul form cancels, 0.5 sum_d (x^2 + mu^2) / cov at the row's most
+    likely component."""
+    x, m, w, mu, cov = (t.double() for t in (desc, mask, weights, means, covariances))
+    const = torch.log(w) - 0.5 * (torch.log(2 * torch.pi * cov) + mu * mu / cov).sum(1)
+    logp = x @ (mu / cov).T - (x * x) @ (0.5 / cov).T + const
+    best = logp.argmax(-1)
+    squares = 0.5 * ((x * x) / cov[best] + (mu * mu / cov)[best]).sum(-1)
+    return (torch.logsumexp(logp, dim=-1) * m).sum(1), (squares * m).sum(1)
+
+
+def gmm_gate(gs, args, kw, got, what: str, ll_against: str = "plain") -> dict:
+    """Kernel 2's statistics ``got`` against its plain version on the same
+    arguments: s0, s1 and s2 within 1e-4 * max|ref| + 1e-5 (``max_err``);
+    the EM form's log-likelihood within rel 1e-5 of the plain version's
+    (``ll_against="plain"``) or, with ``"float64"``, both within rel 1e-5
+    of the float64 value or one float32 rounding of each row's squares
+    that the matmul form cancels, summed, where that is larger: on real
+    descriptors both float32 sums part from float64 by about rel 1e-5."""
+    want = gs.gmm_stats_reference(*args, **kw)
+    torch.cuda.synchronize()
+    rec = {"max_abs_err": max(max_err(a, b, f"{what} {name}")
+                              for name, a, b in zip(("s0", "s1", "s2"), got, want))}
+    if not kw.get("with_ll"):
+        return rec
+    if ll_against == "plain":
+        rel_ll = abs(float(got[3]) - float(want[3])) / abs(float(want[3]))
+        log(f"  {what} ll: kernel {float(got[3]):.6f}, plain {float(want[3]):.6f}, "
+            f"rel {rel_ll:.3e}")
+        check(rel_ll <= 1e-5, f"{what}: EM log-likelihood off by rel {rel_ll}")
+        return {**rec, "ll_rel_err": rel_ll}
+    exact, squares = gmm_ll_float64(*args)
+    tol = torch.maximum(1e-5 * exact.abs(), 2.0**-24 * squares)
+    errs = {"kernel": got[3].double() - exact, "plain": want[3].double() - exact}
+    log(f"  {what} ll: float64 {exact.tolist()}, kernel {errs['kernel'].tolist()}, plain "
+        f"{errs['plain'].tolist()} (tol {tol.tolist()})")
+    check(all(bool((e.abs() <= tol).all()) for e in errs.values()),
+          f"{what}: EM log-likelihood off float64 by {errs} > {tol}")
+    rel = {k: float((e.abs() / exact.abs()).max()) for k, e in errs.items()}
+    return {**rec, "ll_rel_err": rel["kernel"], "ll_plain_rel_err": rel["plain"],
+            "ll_tol_rel": float((tol / exact.abs()).max())}
+
+
 def phase_gmm_kernel(gs, gmm, rootsift_call):
     """The GMM statistics kernel against its plain version, in the Fisher
     form (a batch of sets), the EM form (one large set) and the RootSIFT
@@ -619,12 +702,10 @@ def phase_gmm_kernel(gs, gmm, rootsift_call):
     mask[1, 3] = 0.37  # one fractional weight
     mask = mask.cuda()
     got = gs.gmm_stats_batched(desc, mask, *params)
-    want = gs.gmm_stats_reference(desc, mask, *params)
-    torch.cuda.synchronize()
     soft = int((gmm_posteriors(desc, gmm).amax(dim=-1) < 0.99).sum())
     log(f"gmm fisher form: {soft} of {B * N} rows have a largest posterior < 0.99")
     check(soft > 0, "every posterior is one-hot")
-    errs = [max_err(a, b, f"fisher {name}") for name, a, b in zip(("s0", "s1", "s2"), got, want)]
+    errs = [gmm_gate(gs, (desc, mask, *params), {}, got, "fisher")["max_abs_err"]]
     check(not any(float(t[0].abs().max()) for t in got), "fully masked set has statistics")
     ms = cuda_ms(lambda: gs.gmm_stats_batched(desc, mask, *params))
     plain_ms = cuda_ms(lambda: gs.gmm_stats_reference(desc, mask, *params))
@@ -640,12 +721,9 @@ def phase_gmm_kernel(gs, gmm, rootsift_call):
     m = torch.ones((1, N_TRAIN), device="cuda")
     m[0, :100] = 0.0
     got = gs.gmm_stats_batched(x, m, *params, with_ll=True)
-    want = gs.gmm_stats_reference(x, m, *params, with_ll=True)
-    torch.cuda.synchronize()
-    errs += [max_err(a, b, f"em {name}") for name, a, b in zip(("s0", "s1", "s2"), got, want)]
-    rel_ll = abs(float(got[3]) - float(want[3])) / abs(float(want[3]))
-    log(f"  em ll: kernel {float(got[3]):.6f}, plain {float(want[3]):.6f}, rel {rel_ll:.3e}")
-    check(rel_ll <= 1e-5, f"EM log-likelihood off by rel {rel_ll}")
+    em = gmm_gate(gs, (x, m, *params), {"with_ll": True}, got, "em")
+    errs.append(em["max_abs_err"])
+    rel_ll = em["ll_rel_err"]
     em_ms = cuda_ms(lambda: gs.gmm_stats_batched(x, m, *params, with_ll=True))
     em_plain_ms = cuda_ms(lambda: gs.gmm_stats_reference(x, m, *params, with_ll=True))
     em_bound = bound(8 * (N_TRAIN - 100) * k * d,
@@ -1239,28 +1317,33 @@ def time_calls(fn, calls, **kw) -> float:
     return cuda_ms(lambda: [fn(*a, **k) for a, k in calls], **kw)
 
 
+def refine_gate(kernels, args, kw) -> dict:
+    """Kernel A on one call's arguments against its plain version: ok
+    flags and positions equal, offsets and contrast to 1e-5 (the kernel
+    repeats the plain version's f32 operations), two calls bit-equal."""
+    got = kernels.refine(*args, **kw)
+    again = kernels.refine(*args, **kw)
+    want, fits = kernels.refine_reference(*args, **kw, return_steps=True)
+    torch.cuda.synchronize()
+    check(same_bits(got, again), "refinement kernel does not repeat bit for bit")
+    check(torch.equal(got.ok, want.ok), f"{int((got.ok != want.ok).sum())} ok flags differ")
+    for name in ("layer", "row", "col"):
+        check(torch.equal(getattr(got, name), getattr(want, name)), f"refined {name} differs")
+    err = max(float((getattr(got, name) - getattr(want, name)).abs().max())
+              for name in ("xr", "xc", "xi", "contrast"))
+    check(err <= 1e-5, f"refined offsets off by {err}")
+    return {"max_abs_err": err, "candidates": int(args[5].sum()), "kept": int(got.ok.sum()),
+            "fits": int(fits.sum())}
+
+
 def check_refine(kernels, calls, load: str) -> dict:
     """One launch over every octave; ok flags and positions equal, offsets
     and contrast to 1e-5 (the kernel repeats the plain version's f32
     operations, so 0 is expected), two kernel calls bit-equal."""
     check(len(calls) == 1, f"the SIFT call refined in {len(calls)} launches, not 1")
-    n_cand = n_ok = fits_total = 0
-    err = 0.0
-    for args, kw in calls:
-        got = kernels.refine(*args, **kw)
-        again = kernels.refine(*args, **kw)
-        want, fits = kernels.refine_reference(*args, **kw, return_steps=True)
-        torch.cuda.synchronize()
-        check(same_bits(got, again), "refinement kernel does not repeat bit for bit")
-        check(torch.equal(got.ok, want.ok), f"{int((got.ok != want.ok).sum())} ok flags differ")
-        for name in ("layer", "row", "col"):
-            check(torch.equal(getattr(got, name), getattr(want, name)), f"refined {name} differs")
-        for name in ("xr", "xc", "xi", "contrast"):
-            err = max(err, float((getattr(got, name) - getattr(want, name)).abs().max()))
-        n_cand += int(args[5].sum())
-        n_ok += int(got.ok.sum())
-        fits_total += int(fits.sum())
-    check(err <= 1e-5, f"refined offsets off by {err}")
+    recs = [refine_gate(kernels, args, kw) for args, kw in calls]
+    err = max(r["max_abs_err"] for r in recs)
+    n_cand, n_ok, fits_total = (sum(r[k] for r in recs) for k in ("candidates", "kept", "fits"))
     ms = time_calls(kernels.refine, calls)
     plain_ms = time_calls(kernels.refine_reference, calls, reps=3, rounds=5)
     # The launch's own device time, apart from the host time of the call
@@ -1305,10 +1388,10 @@ def window_pixels(kw, radius_f) -> int:
     return int(((2 * rad + 1) ** 2).sum())
 
 
-def check_orientation(kernels, calls, load: str) -> dict:
-    """theta to 1e-5 rad where the keypoint is valid, theta2 where both
-    find a second peak, has_second equal, two kernel calls bit-equal."""
-    (args, kw), = calls
+def orientation_gate(kernels, args, kw) -> dict:
+    """Kernel B on one call's (keyword) arguments against its plain
+    version: theta to 1e-5 rad where the keypoint is valid, theta2 where
+    both find a second peak, has_second equal, two calls bit-equal."""
     got = kernels.orientation(*args, **kw)
     again = kernels.orientation(*args, **kw)
     want = kernels.orientation_reference(*args, **kw)
@@ -1317,10 +1400,20 @@ def check_orientation(kernels, calls, load: str) -> dict:
     valid = kw["valid"]
     mismatched = int((got[2] != want[2]).sum())
     check(mismatched == 0, f"has_second differs on {mismatched} keypoints")
-    err = float((got[0] - want[0])[valid].abs().max())
+    err = float((got[0] - want[0])[valid].abs().max()) if valid.any() else 0.0
     if got[2].any():
         err = max(err, float((got[1] - want[1])[got[2]].abs().max()))
     check(err <= 1e-5, f"orientation off by {err} rad")
+    return {"max_abs_err": err, "valid": int(valid.sum()), "second_peaks": int(got[2].sum())}
+
+
+def check_orientation(kernels, calls, load: str) -> dict:
+    """theta to 1e-5 rad where the keypoint is valid, theta2 where both
+    find a second peak, has_second equal, two kernel calls bit-equal."""
+    (args, kw), = calls
+    gate = orientation_gate(kernels, args, kw)
+    err = gate["max_abs_err"]
+    valid = kw["valid"]
     ms = time_calls(kernels.orientation, calls)
     plain_ms = time_calls(kernels.orientation_reference, calls, reps=1, rounds=3, warmup=1)
     # The launch's own device time, apart from the host time of the call.
@@ -1331,7 +1424,7 @@ def check_orientation(kernels, calls, load: str) -> dict:
     pix = window_pixels(kw, torch.round(4.5 * kw["scl"]))
     atlas_bytes = kw["atlas"].element_size() * 2
     b = bound(10 * pix, atlas_bytes * pix + 29 * n + 9 * n)
-    log(f"sift orientation ({load}): {int(valid.sum())} valid of {n}, {int(got[2].sum())} second peaks, "
+    log(f"sift orientation ({load}): {int(valid.sum())} valid of {n}, {gate['second_peaks']} second peaks, "
         f"{pix} window pixels; max|diff| {err:.3e} rad; kernel {ms:.4f} ms (device "
         f"{device_ms:.4f}), plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b})")
     return {
@@ -1376,22 +1469,31 @@ def descriptor_pixels(kw) -> tuple[int, int]:
     return window, inside
 
 
-def check_descriptor(kernels, calls, load: str) -> dict:
-    """Descriptors within 1 unit everywhere and exact on >= 99 % of the
-    valid keypoints' entries (the plain version sums its histogram in
-    another f32 order), two kernel calls bit-equal."""
-    (args, kw), = calls
+def descriptor_gate(kernels, args, kw) -> dict:
+    """Kernel C on one call's (keyword) arguments against its plain
+    version: within 1 unit everywhere and exact on >= 99 % of the valid
+    keypoints' entries, two calls bit-equal."""
     got = kernels.descriptor(*args, **kw)
     again = kernels.descriptor(*args, **kw)
     want = kernels.descriptor_reference(*args, **kw)
     torch.cuda.synchronize()
     check(torch.equal(got, again), "descriptor kernel does not repeat bit for bit")
-    valid = kw["valid"]
     diff = (got - want).abs()
     err = float(diff.max())
-    exact = float((diff[valid] == 0).float().mean())
+    exact = float((diff[kw["valid"]] == 0).float().mean())
     check(err <= 1.0, f"descriptors differ by {err} units")
     check(exact >= 0.99, f"only {exact:.4f} of descriptor entries are exact")
+    return {"max_abs_err": err, "exact_share": exact}
+
+
+def check_descriptor(kernels, calls, load: str) -> dict:
+    """Descriptors within 1 unit everywhere and exact on >= 99 % of the
+    valid keypoints' entries (the plain version sums its histogram in
+    another f32 order), two kernel calls bit-equal."""
+    (args, kw), = calls
+    gate = descriptor_gate(kernels, args, kw)
+    err, exact = gate["max_abs_err"], gate["exact_share"]
+    valid = kw["valid"]
     ms = time_calls(kernels.descriptor, calls)
     plain_ms = time_calls(kernels.descriptor_reference, calls, reps=1, rounds=3, warmup=1)
     n = valid.numel()
@@ -2861,18 +2963,17 @@ def f32_slack(d: int) -> float:
     return max(1e-5, 3 * 2.0**-24 * d**0.5)
 
 
-def lloyd_on_path_gate(ls, x, mask, centers, what: str) -> dict:
-    """Kernel 3 on the first Lloyd step's arguments of a fit of the path
-    against its plain version, at phase 2c's gates where these real rows
-    allow: each label equal to the plain argmin's or, for a near tie,
-    within ``f32_slack(D)`` (|x|^2 + |c|^2) of its float64 distance; the
-    sums within 1e-4 * max|ref| + 1e-5 and the counts equal to the plain
+def lloyd_gate(ls, x, mask, centers, what: str) -> dict:
+    """Kernel 3 on the arguments of a Lloyd step of the path against its
+    plain version, at phase 2c's gates where these real rows allow: each
+    label equal to the plain argmin's or, for a near tie, within
+    ``f32_slack(D)`` (|x|^2 + |c|^2) of its float64 distance; the sums
+    within 1e-4 * max|ref| + 1e-5 and the counts equal to the plain
     version's statistics under the kernel's labels (the plain version
     itself where no label differs); two calls bit-equal; the inertia of
     both within rel 1e-5 of the float64 inertia under the kernel's labels,
-    or within the float32 slack of its terms where that is larger. Timed
-    beside the plain version and its bound."""
-    from pyvisim_tpu_torch.ops import lloyd_step, pairwise_sqdist
+    or within the float32 slack of its terms where that is larger."""
+    from pyvisim_tpu_torch.ops import pairwise_sqdist
 
     got = ls.lloyd_stats(x, mask, centers, return_labels=True)
     again = ls.lloyd_stats(x, mask, centers, return_labels=True)
@@ -2914,22 +3015,32 @@ def lloyd_on_path_gate(ls, x, mask, centers, what: str) -> dict:
         f"{inertia_err['plain']:+.3e} (tol {tol:.3e})")
     check(all(abs(e) <= tol for e in inertia_err.values()),
           f"{what}: inertia off float64 by {inertia_err} > {tol}")
+    return {"shape": f"N={x.shape[0]} D={x.shape[1]} K={centers.shape[0]}", "max_abs_err": err,
+            "near_tie_rows": int(differ.sum()), "inertia_float64": exact,
+            "inertia_err": inertia_err}
+
+
+def lloyd_on_path_gate(ls, x, mask, centers, what: str) -> dict:
+    """``lloyd_gate`` on the first Lloyd step's arguments of a fit of the
+    path, timed beside the plain version and its bound."""
+    from pyvisim_tpu_torch.ops import lloyd_step
+
+    rec = lloyd_gate(ls, x, mask, centers, what)
     n, d = x.shape
     k = centers.shape[0]
-    n_valid = int(weighted.sum())
+    n_valid = int((mask != 0).sum())
     lb = bound(2 * n_valid * k * d + 2 * n_valid * d, 4 * (n * d + n + 2 * k * d + k + 1))
 
     def step_synced():
         new, inertia = lloyd_step(x, mask, centers)
         torch.stack([((new - centers) ** 2).sum(), inertia]).tolist()
 
-    rec = {"shape": f"N={n} D={d} K={k}", "max_abs_err": err, "near_tie_rows": int(differ.sum()),
-           "inertia_float64": exact, "inertia_err": inertia_err,
-           "ms": cuda_ms(lambda: ls.lloyd_stats(x, mask, centers), reps=5, rounds=5),
-           "plain_ms": cuda_ms(lambda: ls.lloyd_stats_reference(x, mask, centers), reps=5,
-                               rounds=5),
-           "step_queued_ms": cuda_ms(lambda: lloyd_step(x, mask, centers), reps=5, rounds=5),
-           "step_synced_ms": host_ms(step_synced), **lb}
+    rec.update({
+        "ms": cuda_ms(lambda: ls.lloyd_stats(x, mask, centers), reps=5, rounds=5),
+        "plain_ms": cuda_ms(lambda: ls.lloyd_stats_reference(x, mask, centers), reps=5,
+                            rounds=5),
+        "step_queued_ms": cuda_ms(lambda: lloyd_step(x, mask, centers), reps=5, rounds=5),
+        "step_synced_ms": host_ms(step_synced), **lb})
     log(f"  {what}: kernel 3 {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f}, bound "
         f"{rec['bound_ms']:.4f} ({rec['bound_by']}); Lloyd step queued "
         f"{rec['step_queued_ms']:.4f}, synced {rec['step_synced_ms']:.4f}")
@@ -3174,6 +3285,784 @@ def phase_flowers(conv, agg, ls, enc, root: pathlib.Path):
     return launches, numbers
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the mesh paths (pyvisim_tpu_torch.parallel) in worlds of ranks
+# ---------------------------------------------------------------------------
+DEV = "cuda"  # phase 12's device
+MESH_WORLDS = (("nccl1", 1, "nccl"), ("gloo2", 2, "gloo"))
+MESH_KM_STEPS = MESH_EM_STEPS = 10
+MESH_TRAIN_STEPS, MESH_TRAIN_LR = 3, 3e-4
+MESH_GALLERY_SEED, MESH_Q = 12, 8
+MESH_CHECKED = {"vlad_aggregate", "gmm_stats", "lloyd_stats", "sift_refine", "sift_orientation",
+                "sift_descriptor", "conv3x3_relu_maxpool", "conv3x3_relu_maxpool_q8", "conv3x3_q8"}
+MESH_STEPS = ("kmeans", "pca", "gmm", "vlad_encoder", "fv_encoder", "cluster_vlad",
+              "cluster_fisher", "sift", "index_f32", "index_int8", "train_dp", "train_tp")
+
+
+def mesh_wrappers() -> dict:
+    """The eight kernels' wrappers by their records' names (kernel 8 has a
+    pooled and an unpooled entry point)."""
+    from pyvisim_tpu_torch.ops.cuda import aggregate, conv, gmm_stats, lloyd_stats, sift_window
+
+    return {"vlad_aggregate": (aggregate.vlad_aggregate_batched,),
+            "gmm_stats": (gmm_stats.gmm_stats_batched,),
+            "lloyd_stats": (lloyd_stats.lloyd_stats,),
+            "sift_refine": (sift_window.refine,),
+            "sift_orientation": (sift_window.orientation,),
+            "sift_descriptor": (sift_window.descriptor,),
+            "conv3x3_relu_maxpool": (conv.conv3x3_relu_maxpool,),
+            "conv3x3_relu_maxpool_q8": (conv.conv3x3_relu_maxpool_q8, conv.conv3x3_q8)}
+
+
+def mesh_kernel_gates() -> dict:
+    """Each kernel's gate on one call of the path, by record name:
+    ``gate(args, kwargs, out)`` holds the call's output against the
+    kernel's plain version on the same arguments at phase 2's tolerances
+    (the checks of phases 2a-2e, 8 and 11) and returns its record."""
+    from pyvisim_tpu_torch.ops.cuda import aggregate, conv, gmm_stats, lloyd_stats, sift_window
+
+    def repeats(what, fn, a, k, out):
+        check(same_bits(out, fn(*a, **k)), f"{what} does not repeat bit for bit on the mesh path")
+
+    def lloyd(a, k, out):
+        repeats("kernel 3", lloyd_stats.lloyd_stats, a, k, out)
+        return lloyd_gate(lloyd_stats, *a, "mesh kernel 3")
+
+    def sift(name, gate):
+        def g(a, k, out):
+            repeats(name, getattr(sift_window, name), a, k, out)
+            return gate(sift_window, a, k)
+        return g
+
+    def conv_gate(name):
+        def g(a, k, out):
+            acc = None
+            if name != "conv3x3_relu_maxpool":  # kernel 8's int32 sums too
+                acc = getattr(conv, name)(*a, return_acc=True, **k)[1]
+            return conv_on_path_gate(conv, name, out, acc, a[0], a[1], a[2:], k)
+        return g
+
+    return {"vlad_aggregate": lambda a, k, out: vlad_on_path_gate(aggregate, out, *a),
+            "gmm_stats": lambda a, k, out: gmm_gate(gmm_stats, a, k, out, "mesh kernel 2",
+                                                    ll_against="float64"),
+            "lloyd_stats": lloyd,
+            "sift_refine": sift("refine", refine_gate),
+            "sift_orientation": sift("orientation", orientation_gate),
+            "sift_descriptor": sift("descriptor", descriptor_gate),
+            "conv3x3_relu_maxpool": conv_gate("conv3x3_relu_maxpool"),
+            "conv3x3_relu_maxpool_q8": conv_gate("conv3x3_relu_maxpool_q8"),
+            "conv3x3_q8": conv_gate("conv3x3_q8")}
+
+
+class _Module:
+    """A module with some of its names replaced."""
+
+    def __init__(self, module, **names):
+        self.__dict__.update(names)
+        self._module = module
+
+    def __getattr__(self, name):
+        return getattr(self._module, name)
+
+
+class MeshPathChecks:
+    """Holds, inside a rank, the first call of each kernel at each input
+    shape during a named step against the kernel's plain version on the
+    same arguments (``mesh_kernel_gates``): it wraps the names through
+    which the port calls the kernels. The launches the checks make are
+    taken off the kernels' counts, and their seconds off the step's."""
+
+    SITES = {  # module: (name in it, kernel record name or a module's kernels)
+        "pyvisim_tpu_torch.ops.vlad": ("vlad_aggregate_batched", "vlad_aggregate"),
+        "pyvisim_tpu_torch.ops.fisher": ("gmm_stats_batched", "gmm_stats"),
+        "pyvisim_tpu_torch.parallel.sharded": (("gmm_stats_batched", "gmm_stats"),
+                                               ("lloyd_stats", "lloyd_stats")),
+        "pyvisim_tpu_torch.ops.kmeans": ("lloyd_stats", "lloyd_stats"),
+        "pyvisim_tpu_torch.ops.sift": ("kernels", {"refine": "sift_refine",
+                                                   "orientation": "sift_orientation",
+                                                   "descriptor": "sift_descriptor"}),
+        "pyvisim_tpu_torch.models.vgg": ("conv_ops", {n: n for n in (
+            "conv3x3_relu_maxpool", "conv3x3_relu_maxpool_q8", "conv3x3_q8")}),
+        "pyvisim_tpu_torch.models.quant": ("conv_ops", {"conv3x3_q8": "conv3x3_q8"}),
+    }
+
+    def __init__(self):
+        self.step, self.seen, self.records, self.seconds = None, set(), [], 0.0
+        self.gates = mesh_kernel_gates()
+        self.counted = [w for ws in mesh_wrappers().values() for w in ws]
+        self.saved = []
+
+    def wrap(self, record, fn):
+        def checked(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            first = args[0] if args else next(iter(kwargs.values()))
+            sig = [tuple(t.shape) for t in (first if isinstance(first, list) else [first])]
+            if self.step is not None and (record, str(sig)) not in self.seen:
+                self.seen.add((record, str(sig)))
+                counts = [w.launches for w in self.counted]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rec = self.gates[record](args, kwargs, out)
+                torch.cuda.synchronize()
+                self.seconds += time.perf_counter() - t0
+                for w, n in zip(self.counted, counts):
+                    w.launches = n
+                self.records.append({"step": self.step, "kernel": record, "input": str(sig),
+                                     **{k: v for k, v in rec.items() if k != "kernel"}})
+            return out
+        return checked
+
+    def install(self):
+        import importlib
+
+        for path, sites in self.SITES.items():
+            module = importlib.import_module(path)
+            for attr, record in (sites if isinstance(sites[0], tuple) else (sites,)):
+                fn = getattr(module, attr)
+                self.saved.append((module, attr, fn))
+                if isinstance(record, dict):
+                    setattr(module, attr, _Module(fn, **{n: self.wrap(r, getattr(fn, n))
+                                                         for n, r in record.items()}))
+                else:
+                    setattr(module, attr, self.wrap(record, fn))
+
+    def remove(self):
+        for module, attr, fn in reversed(self.saved):
+            setattr(module, attr, fn)
+        self.saved = []
+
+
+class MeshSteps:
+    """Runs named steps with every kernel's count set to 0 just before each
+    and read just after; records each step's seconds (the card synced; the
+    seconds of ``checks``, a ``MeshPathChecks``, taken off), launches and
+    the bytes staged through the host for gloo."""
+
+    def __init__(self, checks=None):
+        from pyvisim_tpu_torch.parallel import _collectives
+
+        self.coll = _collectives
+        self.wrappers = mesh_wrappers()
+        self.checks = checks
+        self.seconds, self.launches, self.staged = {}, {}, {}
+
+    def run(self, name, fn):
+        for ws in self.wrappers.values():
+            for w in ws:
+                w.launches = 0
+        self.coll.reset_staged_bytes()
+        checked_s = 0.0
+        if self.checks is not None:
+            self.checks.step, checked_s = name, self.checks.seconds
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+        finally:
+            if self.checks is not None:
+                self.checks.step, checked_s = None, self.checks.seconds - checked_s
+        self.seconds[name] = time.perf_counter() - t0 - checked_s
+        counts = {k: sum(w.launches for w in ws) for k, ws in self.wrappers.items()}
+        self.launches[name] = {k: n for k, n in counts.items() if n}
+        self.staged[name] = self.coll.staged_bytes()
+        return out
+
+
+def mesh_gallery() -> tuple[torch.Tensor, torch.Tensor]:
+    """Phase 12's served gallery, 6,149 x 131,584 drawn on the card from a
+    seed, and 8 queries near its rows 5, 773, ... (every 768th)."""
+    g = torch.Generator(device=DEV).manual_seed(MESH_GALLERY_SEED)
+    gallery = torch.randn((SERVE_ROWS, K * D), generator=g, device=DEV)
+    rows = torch.arange(MESH_Q, device=DEV) * (SERVE_ROWS // MESH_Q) + 5
+    noise = torch.randn((MESH_Q, K * D), generator=g, device=DEV)
+    return gallery, gallery[rows] + 0.5 * noise
+
+
+def mesh_train_batch():
+    """The first 32 training views of phase 9's corpus (4 classes x 8
+    views) at 224^2, and their labels."""
+    from pyvisim_tpu_torch.ops.resize import masked_linear_resize
+
+    imgs, labels, _, _ = training_corpus()
+    u8 = torch.from_numpy(np.stack(imgs[:TRAIN_B])).to(DEV)
+    return (masked_linear_resize(u8.float() / 255.0, TRAIN_SIZE).cpu().numpy(),
+            labels[:TRAIN_B].astype(np.int64))
+
+
+def mesh_index_answers(index, queries) -> dict:
+    out = {}
+    for q in (1, MESH_Q):
+        scores, ids = index.query_vectors(queries[:q], 5)
+        out[f"q{q}_ids"], out[f"q{q}_scores"] = ids, scores
+    return out
+
+
+def mesh_query_ms(index, queries, reps: int = 20) -> float:
+    """Median host ms of a Q=1 query (numpy out, so the card is synced)."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        index.query_vectors(queries[:1], 5)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def mesh_steps(run, inp, meshes, trainer):
+    """Every step of phase 12 through ``run(name, fn)``. ``meshes`` maps
+    "data", "cluster" and "model" to the mesh of each step (None for the
+    single card); ``trainer(mesh)`` gives ``(state, step)``. Returns the
+    steps' results as numpy arrays, by step."""
+    from pyvisim_tpu_torch import parallel as par
+    from pyvisim_tpu_torch.encoders import FisherVectorEncoder, GMMWeights, VLADEncoder
+    from pyvisim_tpu_torch.encoders._base_encoder import _CLUSTERING_TO_PCA_MAPPING
+    from pyvisim_tpu_torch.features import DeepConvFeature
+    from pyvisim_tpu_torch.index import RetrievalIndex
+    from pyvisim_tpu_torch.ops import KMeansCodebook, fisher_encode_batch, gmm, kmeans, pca, sift
+    from pyvisim_tpu_torch.ops.cuda import aggregate
+    from pyvisim_tpu_torch.ops.norms import lp_normalize
+
+    data, clu = meshes["data"], meshes["cluster"]
+    x = torch.from_numpy(inp["x"]).to(DEV)
+    desc = x.view(B, N, D)
+    init = torch.from_numpy(inp["init"]).to(DEV)
+    centers = torch.from_numpy(inp["centers"]).to(DEV)
+    fv_gmm = GMMWeights.OXFORD102_K256_VGG16_PCA.load().to(DEV)
+    projector = _CLUSTERING_TO_PCA_MAPPING[GMMWeights.OXFORD102_K256_VGG16_PCA].load().to(DEV)
+    x_pca = projector(x).contiguous()
+    res = {}
+
+    def kmeans_step():
+        h = {}
+        if data is None:
+            cb, _ = kmeans.kmeans_fit(x, K, max_iters=MESH_KM_STEPS, tol=-1.0, history=h,
+                                      device=DEV)
+        else:
+            cb, _ = par.distributed_kmeans_fit(x, K, data, n_iters=MESH_KM_STEPS,
+                                               init_centers=init, history=h)
+        return {"centers": cb.centers, "inertia": np.asarray(h["lloyd_inertia"][0])}
+
+    def pca_step():
+        p = (pca.pca_fit(x, D_PCA, device=DEV) if data is None
+             else par.distributed_pca_fit(x, D_PCA, data))
+        return {"mean": p.mean, "components": p.components, "var": p.explained_variance}
+
+    def gmm_step():
+        km = KMeansCodebook(centers=fv_gmm.means)
+        ones = torch.ones(x_pca.shape[0], device=DEV)
+        if data is None:
+            g = gmm._init_from_kmeans(x_pca, ones, km, 1e-6)
+            lls = []
+            for _ in range(MESH_EM_STEPS):
+                g, ll = gmm.em_step(x_pca, ones, g, 1e-6)
+                lls.append(ll)
+            lls = torch.stack(lls).tolist()
+        else:
+            h = {}
+            g, _ = par.distributed_gmm_fit(x_pca, K, data, n_iters=MESH_EM_STEPS, init_kmeans=km,
+                                           history=h)
+            lls = h["em_mean_ll"][0]
+        return {"weights": g.weights, "means": g.means, "covariances": g.covariances,
+                "mean_ll": np.asarray(lls)}
+
+    ext8 = DeepConvFeature("vgg16", image_size=224, dtype=torch.bfloat16, int8=True, mesh=data,
+                           device=DEV if data is None else None)
+    vlad = VLADEncoder(ext8, kmeans_model=KMeansCodebook(centers))
+    fv = FisherVectorEncoder(ext8, weights=GMMWeights.OXFORD102_K256_VGG16_PCA)
+    listed = list(inp["images"])
+    vlad.encode(listed[:8])  # warm the trunk's kernels and cuDNN's choices
+    fv.encode(listed[:8])
+
+    def cluster_vlad_step():
+        if clu is None:  # the plain aggregation (the sharded blocks' arithmetic)
+            v = aggregate.vlad_aggregate_reference(desc, torch.ones(B, N, device=DEV),
+                                                   centers)
+            return lp_normalize(v, dim=-1).reshape(B, -1)
+        return par.cluster_sharded_vlad_encode(desc, None, centers, clu)
+
+    def cluster_fisher_step():
+        d = x_pca.view(B, N, D_PCA)
+        if clu is None:
+            return fisher_encode_batch(d, None, fv_gmm)
+        return par.cluster_sharded_fisher_encode(d, None, fv_gmm, clu)
+
+    def sift_step():
+        if data is None:
+            return sift.sift_batch(list(inp["grays"]), run_on=DEV)
+        return par.sharded_sift_batch(list(inp["grays"]), data)
+
+    gallery, queries = mesh_gallery()
+    paths = [str(i) for i in range(SERVE_ROWS)]
+    indexes = {}
+
+    def index_step(quantize):
+        index = RetrievalIndex(gallery, paths, quantize=quantize, mesh=data,
+                               device=DEV if data is None else None)
+        indexes[quantize] = index
+        return mesh_index_answers(index, queries)
+
+    images, labels = torch.from_numpy(inp["train_x"]).to(DEV), torch.from_numpy(inp["train_y"])
+
+    def train_step(mesh):
+        saved = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            t0 = time.perf_counter()
+            state, step = trainer(mesh)
+            times, losses = [time.perf_counter() - t0], []
+            for _ in range(MESH_TRAIN_STEPS):
+                t0 = time.perf_counter()
+                losses.append(float(step(state, images, labels)[1]))
+                times.append(time.perf_counter() - t0)
+        finally:
+            torch.backends.cudnn.deterministic = saved
+        return {"losses": np.asarray(losses), "seconds": np.asarray(times)}
+
+    res["kmeans"] = run("kmeans", kmeans_step)
+    res["pca"] = run("pca", pca_step)
+    res["gmm"] = run("gmm", gmm_step)
+    res["vlad_encoder"] = run("vlad_encoder", lambda: vlad.encode(listed))
+    res["fv_encoder"] = run("fv_encoder", lambda: fv.encode(listed))
+    res["cluster_vlad"] = run("cluster_vlad", cluster_vlad_step)
+    res["cluster_fisher"] = run("cluster_fisher", cluster_fisher_step)
+    res["sift"] = dict(zip(("desc", "mask"), run("sift", sift_step)))
+    res["index_f32"] = run("index_f32", lambda: index_step(None))
+    res["index_int8"] = run("index_int8", lambda: index_step("int8"))
+    res["train_dp"] = run("train_dp", lambda: train_step(data))
+    if meshes["model"] is not None:
+        res["train_tp"] = run("train_tp", lambda: train_step(meshes["model"]))
+    else:
+        # cuDNN's bf16 convs round otherwise at another batch size
+        # (int8_batch_probe), so a rank's encodings are held bit for bit
+        # against the single card's of the same block.
+        half = len(listed) // 2
+        for name, enc in (("vlad_encoder", vlad), ("fv_encoder", fv)):
+            res[f"{name}_halves"] = np.concatenate([enc.encode(listed[:half]),
+                                                    enc.encode(listed[half:])])
+    timing = mesh_timing(x, x_pca, init, fv_gmm, data, indexes, queries)
+    del gallery, indexes
+    torch.cuda.empty_cache()
+    return {k: to_numpy(v) for k, v in res.items()}, timing
+
+
+def to_numpy(v):
+    if isinstance(v, dict):
+        return {k: to_numpy(t) for k, t in v.items()}
+    return v.detach().cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
+
+
+def mesh_timing(x, x_pca, centers, gmm_model, data, indexes, queries) -> dict:
+    """Kernels 3 and 2 on the rows this rank holds (all of them on the
+    single card) and a Q=1 query of each index, per rank."""
+    from pyvisim_tpu_torch.ops.cuda import gmm_stats, lloyd_stats
+
+    if data is not None:
+        from pyvisim_tpu_torch.parallel.mesh import data_sharding
+
+        x = data_sharding(data, 2).shard(x)
+        x_pca = data_sharding(data, 2).shard(x_pca)
+    ones = torch.ones(x.shape[0], device=DEV)
+    params = tuple(t.contiguous() for t in (gmm_model.weights, gmm_model.means,
+                                            gmm_model.covariances))
+    n0 = (lloyd_stats.lloyd_stats.launches, gmm_stats.gmm_stats_batched.launches)
+    out = {
+        "rows": x.shape[0],
+        "lloyd_kernel_ms": cuda_ms(lambda: lloyd_stats.lloyd_stats(x, ones, centers)),
+        "em_kernel_ms": cuda_ms(lambda: gmm_stats.gmm_stats_batched(
+            x_pca[None], ones[None], *params, with_ll=True)),
+        "query_q1_ms": {q or "f32": mesh_query_ms(ix, queries) for q, ix in indexes.items()},
+    }
+    lloyd_stats.lloyd_stats.launches, gmm_stats.gmm_stats_batched.launches = n0
+    return out
+
+
+def mesh_job(path: str) -> dict:
+    """One rank's part of phase 12, run in every rank of a world: every
+    step on this world's meshes ('data' = the world, 'data' x 'cluster' and
+    'data' x 'model' = 1 x the world). Rank 0 writes the results beside the
+    inputs; every rank returns its seconds, launches, staged bytes and
+    kernel times."""
+    import torch.distributed as dist
+
+    from pyvisim_tpu_torch import parallel as par
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank, n = dist.get_rank(), dist.get_world_size()
+    with np.load(path) as f:
+        inp = {k: f[k] for k in f.files}
+    meshes = {"data": par.make_mesh(device_type=DEV),
+              "cluster": par.make_mesh(n, ("data", "cluster"), (1, n), device_type=DEV),
+              "model": par.make_mesh(n, ("data", "model"), (1, n), device_type=DEV)}
+
+    def trainer(mesh):
+        _, state, step = par.make_sharded_trainer(
+            mesh, cfg_name="vgg16", embed_dim=128, image_size=TRAIN_SIZE,
+            learning_rate=MESH_TRAIN_LR, loss="nt_xent")
+        return state, step
+
+    checks = MeshPathChecks()
+    checks.install()
+    try:
+        steps = MeshSteps(checks)
+        res, timing = mesh_steps(steps.run, inp, meshes, trainer)
+    finally:
+        checks.remove()
+    out = {"rank": rank, "device": str(torch.cuda.current_device()),
+           "backend": dist.get_backend(), "seconds": steps.seconds,
+           "launches": steps.launches, "staged_bytes": steps.staged, "timing": timing,
+           "on_path_checks": checks.records, "on_path_check_seconds": checks.seconds}
+    if rank == 0:
+        out["results"] = str(pathlib.Path(path).with_name(f"results_{n}.npz"))
+        np.savez(out["results"], **{f"{s}__{k}": v for s, r in res.items()
+                                    for k, v in (r.items() if isinstance(r, dict)
+                                                 else [("out", r)])})
+    return out
+
+
+def int8_batch_probe(images: np.ndarray) -> dict:
+    """The mesh encoders' int8 VGG16 trunk on all images at once and on
+    its two halves, layer by layer: each layer on the same input at both
+    batch sizes (isolated) and the two trunks carried through (cascade).
+    Kernels 7 and 8 and the int8 convs are held bit for bit, cuDNN's bf16
+    convs within one bf16 step of the layer's largest output (cuDNN chooses
+    its algorithm by shape), each beside a float32 conv of the same input
+    (the share of outputs farther from it than their own rounding). Returns
+    each layer's readings and the images whose descriptors differ."""
+    from pyvisim_tpu_torch.features import DeepConvFeature
+
+    ext = DeepConvFeature("vgg16", image_size=224, dtype=torch.bfloat16, int8=True, device=DEV)
+    x = ext._preprocess(torch.from_numpy(images).to(DEV)).permute(0, 3, 1, 2)
+    half = len(images) // 2
+    parts, layers = [x[:half], x[half:]], []
+
+    def reading(a, b):
+        diff = (a.float() - b.float()).abs()
+        rows = diff.flatten(1).amax(1) > 0
+        return {"max_abs": float(diff.max()),
+                "bf16_steps_of_largest": float(diff.max() / bf16_ulp(b.float().abs().max())),
+                "share": float((diff > 0).float().mean()), "images": int(rows.sum())}, rows
+
+    with torch.inference_mode():
+        for i, m in enumerate(ext.model.features):
+            if isinstance(m, torch.nn.Identity):
+                continue
+            route = "kernel 8" if m.uses_int8(x) else "kernel 7" if m.pool else "cudnn bf16"
+            out = m(x)
+            halves = torch.cat([m(x[:half]), m(x[half:])])
+            isolated, _ = reading(halves, out)
+            parts = [m(t) for t in parts]
+            cascade, rows = reading(torch.cat(parts), out)
+            rec = {"layer": i, "route": route, "input": list(x.shape[1:]), "isolated": isolated,
+                   "cascade": cascade}
+            if route == "cudnn bf16":
+                with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+                    f32 = torch.relu(F.conv2d(x.float(), m.w_x.permute(0, 3, 1, 2).float(),
+                                              m.bias_x.float(), padding=1))
+                # Beyond rounding: elements farther from the float32 conv
+                # than half a bf16 step of their own value.
+                half_step = 0.5 * bf16_ulp(f32.abs())
+                rec["from_float32"] = {
+                    n: {"max_abs": float((y.float() - f32).abs().max()),
+                        "share_beyond_rounding": float(
+                            ((y.float() - f32).abs() > half_step * 1.001).float().mean())}
+                    for n, y in ((len(images), out), (half, halves))}
+                del f32, half_step
+            layers.append(rec)
+            limit = 1.0 if route == "cudnn bf16" else 0.0
+            check(isolated["bf16_steps_of_largest"] <= limit,
+                  f"int8 trunk layer {i} ({route}) at batch {half} against {len(images)}: "
+                  f"{isolated}")
+            x = out
+    first = next((r for r in layers if r["isolated"]["images"]), None)
+    log(f"int8 trunk, batch {half} against {len(images)}: first layer that differs on the same "
+        f"input {first}; " + ", ".join(f"{r['layer']} {r['route']} {r['cascade']['images']} "
+                                       f"images" for r in layers))
+    return {"layers": layers, "first_differing": first,
+            "images_differing": np.nonzero(rows.cpu().numpy())[0].tolist()}
+
+
+def mesh_rows_cos(got: np.ndarray, want: np.ndarray) -> float:
+    """The worst 1 - cosine of two encodings' rows, in float64."""
+    g, w = got.astype(np.float64), want.astype(np.float64)
+    dot = (g * w).sum(1)
+    norms = np.linalg.norm(g, axis=1) * np.linalg.norm(w, axis=1)
+    return float(np.max(1.0 - np.where(norms > 0, dot / np.maximum(norms, 1e-300), 1.0)))
+
+
+def mesh_encodings_gate(what, got, want, skip=()) -> dict:
+    """Encodings within 1e-5 with 1 - cosine <= 1e-6 per row (rows in
+    ``skip`` excused); bit for bit or not, said."""
+    keep = np.setdiff1d(np.arange(len(want)), np.asarray(skip, np.int64))
+    check(got.shape == want.shape, f"{what}: shape {got.shape} against {want.shape}")
+    err = float(np.abs(got[keep] - want[keep]).max())
+    cos = mesh_rows_cos(got[keep], want[keep])
+    check(err <= 1e-5 and cos <= 1e-6, f"{what}: max|diff| {err:.3e}, 1 - cos {cos:.3e}")
+    return {"max_abs_err": err, "one_minus_cos": cos, "bit_equal": bool(np.array_equal(got, want)),
+            "rows_excused": len(want) - len(keep)}
+
+
+def near_tie_rows(x: torch.Tensor, centers: torch.Tensor, rel: float) -> torch.Tensor:
+    """Rows whose two nearest centers are within ``rel * (|x|^2 + |c|^2)``
+    of each other in float64: where f32 distances of another summation
+    order may pick either."""
+    xd, cd = x.double(), centers.double()
+    d2 = torch.cdist(xd, cd) ** 2
+    two = torch.topk(d2, 2, dim=1, largest=False)
+    slack = rel * ((xd**2).sum(1) + (cd[two.indices[:, 0]] ** 2).sum(1))
+    return (two.values[:, 1] - two.values[:, 0]) <= slack
+
+
+def mesh_kmeans_gate(n, ref, got, x) -> dict:
+    steps_ref, steps_got = ref["inertia"], got["inertia"]
+    c_ref, c_got = ref["centers"], got["centers"]
+    if n == 1:
+        check(np.array_equal(c_got, c_ref) and np.array_equal(steps_got, steps_ref),
+              "mesh kmeans on one rank is not kmeans_fit bit for bit")
+        return {"bit_equal": True}
+    inertia_rel = float(np.max(np.abs(steps_got - steps_ref) / np.abs(steps_ref)))
+    check(inertia_rel <= 1e-5, f"mesh kmeans inertia off by rel {inertia_rel:.3e}")
+    # Rows that change cluster between the two fits must be near ties, and
+    # only their clusters may move by more than the sums' rounding.
+    cr, cg = torch.from_numpy(c_ref).to(DEV), torch.from_numpy(c_got).to(DEV)
+    lr = torch.cdist(x.double(), cr.double()).argmin(1)
+    lg = torch.cdist(x.double(), cg.double()).argmin(1)
+    moved = lr != lg
+    tie = near_tie_rows(x[moved], cr, 1e-4)
+    check(bool(tie.all()), f"mesh kmeans: {int((~tie).sum())} rows changed cluster off a tie")
+    touched = set(lr[moved].tolist()) | set(lg[moved].tolist())
+    tol = 1e-4 * float(np.abs(c_ref).max()) + 1e-5
+    off = set(np.nonzero(np.abs(c_got - c_ref).max(1) > tol)[0].tolist())
+    check(off <= touched, f"mesh kmeans: clusters {sorted(off - touched)} off by more than {tol}")
+    keep = [i for i in range(K) if i not in touched]
+    err = float(np.abs(c_got[keep] - c_ref[keep]).max())
+    return {"inertia_max_rel": inertia_rel, "centers_max_abs_err": err,
+            "rows_changed_cluster": int(moved.sum()), "clusters_excused": len(touched)}
+
+
+def mesh_pca_gate(ref, got) -> dict:
+    """Mean to 1e-5 * max|mean|; explained variance to 1e-4 of the largest;
+    each leading component whose variance stands 1 % apart from its
+    neighbours' at |cos| >= 1 - 1e-4 (others are not determined)."""
+    mean_err = float(np.abs(got["mean"] - ref["mean"]).max())
+    check(mean_err <= 1e-5 * float(np.abs(ref["mean"]).max()) + 1e-7,
+          f"mesh PCA mean off by {mean_err}")
+    var = ref["var"].astype(np.float64)
+    var_err = float(np.abs(got["var"] - ref["var"]).max() / var.max())
+    check(var_err <= 1e-4, f"mesh PCA variances off by {var_err} of the largest")
+    gaps = np.abs(np.diff(var)) / var.max()
+    clear = [i for i in range(len(var))
+             if (i == 0 or gaps[i - 1] > 1e-2) and (i == len(var) - 1 or gaps[i] > 1e-2)]
+    cos = np.abs((got["components"][clear].astype(np.float64)
+                  * ref["components"][clear]).sum(1))
+    check(bool((cos >= 1 - 1e-4).all()), f"mesh PCA: a separated component at cos {cos.min()}")
+    return {"mean_max_abs_err": mean_err, "var_max_rel": var_err, "separated_components": len(clear),
+            "worst_cos": float(cos.min()) if clear else None,
+            "bit_equal_mean": bool(np.array_equal(got["mean"], ref["mean"]))}
+
+
+def mesh_gmm_gate(n, ref, got) -> dict:
+    names = ("weights", "means", "covariances", "mean_ll")
+    if n == 1:
+        check(all(np.array_equal(got[k], ref[k]) for k in names),
+              "mesh GMM on one rank is not the single card's EM bit for bit")
+        return {"bit_equal": True}
+    # A covariance is s2/nk - mean^2: the sums' rounding scales with the raw
+    # second moment s2/nk, so that is the covariances' scale here.
+    scale = {"weights": np.abs(ref["weights"]).max(), "means": np.abs(ref["means"]).max(),
+             "covariances": (ref["covariances"] + ref["means"].astype(np.float64) ** 2).max()}
+    errs = {k: float(np.abs(got[k] - ref[k]).max() / scale[k]) for k in names[:3]}
+    ll_rel = float(np.max(np.abs(got["mean_ll"] - ref["mean_ll"]) / np.abs(ref["mean_ll"])))
+    check(all(e <= 1e-4 for e in errs.values()), f"mesh GMM parameters off: {errs}")
+    check(ll_rel <= 1e-5, f"mesh GMM mean log-likelihood off by rel {ll_rel}")
+    cov_rel = float(np.abs(got["covariances"] - ref["covariances"]).max()
+                    / np.abs(ref["covariances"]).max())
+    return {"max_err_of_scale": errs, "covariances_max_rel_of_largest": cov_rel,
+            "mean_ll_max_rel": ll_rel}
+
+
+# The two-rank encodes against one encode of all 128 images: (max|diff|,
+# 1 - cos) limits, 2.4x and 2.6x VLAD's gap and 9x and 5.5x FV's as the card
+# measured them (0.209 and 3.85e-3; 5.4e-5 and 1.8e-9). They come from
+# cuDNN's bf16 conv5 rounding otherwise at 64 images (int8_batch_probe),
+# which VLAD's hard assignment turns into a descriptor moved to another
+# center, and for FV also from the PCA product, which cuBLAS computes by
+# the batch's shape: so only VLAD's rows are held to the images whose
+# descriptors moved.
+MESH_ONE_ENCODE_LIMITS = {"vlad_encoder": (0.5, 1e-2), "fv_encoder": (5e-4, 1e-8)}
+
+
+def mesh_gates(n, ref, got, x, desc, centers, batch_probe) -> dict:
+    """Phase 12's gates for a world of ``n`` ranks against the single card;
+    ``batch_probe`` is ``int8_batch_probe``'s record."""
+    gates = {"kmeans": mesh_kmeans_gate(n, ref["kmeans"], got["kmeans"], x),
+             "pca": mesh_pca_gate(ref["pca"], got["pca"]),
+             "gmm": mesh_gmm_gate(n, ref["gmm"], got["gmm"])}
+    for name in ("vlad_encoder", "fv_encoder"):
+        # Each rank's block against the single card's encode of that block,
+        # and against one encode of all 128 within MESH_ONE_ENCODE_LIMITS.
+        blocks = ref[name] if n == 1 else ref[f"{name}_halves"]
+        gates[name] = mesh_encodings_gate(f"mesh {name}", got[name], blocks)
+        if n == 1:
+            check(gates[name]["bit_equal"], f"mesh {name} on one rank is not bit for bit")
+        rows = np.nonzero((got[name] != ref[name]).any(1))[0].tolist()
+        one = {"max_abs_err": float(np.abs(got[name] - ref[name]).max()),
+               "one_minus_cos": mesh_rows_cos(got[name], ref[name]), "rows_differing": rows}
+        limit_abs, limit_cos = MESH_ONE_ENCODE_LIMITS[name]
+        check(name != "vlad_encoder" or set(rows) <= set(batch_probe["images_differing"]),
+              f"mesh {name}: rows {rows} differ from one encode of all, not only the images "
+              f"whose descriptors the batch size moved {batch_probe['images_differing']}")
+        check(one["max_abs_err"] <= limit_abs and one["one_minus_cos"] <= limit_cos,
+              f"mesh {name} against one encode of all: {one}, limits {limit_abs}, {limit_cos}")
+        gates[name]["against_one_encode_of_all"] = one
+    # The cluster-sharded VLAD against the plain aggregation; where they
+    # differ, only images with a descriptor near a tie between two centers
+    # may (the two compute distances in products of other shapes).
+    skip = ()
+    if not np.array_equal(got["cluster_vlad"], ref["cluster_vlad"]):
+        ties = near_tie_rows(desc.reshape(-1, D), centers, 1e-5).view(B, N).any(1)
+        skip = np.nonzero(ties.cpu().numpy())[0]
+    gates["cluster_vlad"] = mesh_encodings_gate("mesh cluster VLAD", got["cluster_vlad"],
+                                                ref["cluster_vlad"], skip)
+    gates["cluster_fisher"] = mesh_encodings_gate("mesh cluster FV", got["cluster_fisher"],
+                                                  ref["cluster_fisher"])
+    check(all(np.array_equal(got["sift"][k], ref["sift"][k]) for k in ("desc", "mask")),
+          "mesh SIFT descriptors or masks differ from the single card's")
+    gates["sift"] = {"bit_equal": True}
+    for name in ("index_f32", "index_int8"):
+        r, g = ref[name], got[name]
+        for q in (1, MESH_Q):
+            check(np.array_equal(g[f"q{q}_ids"], r[f"q{q}_ids"]),
+                  f"mesh {name} Q={q}: ids {g[f'q{q}_ids'].tolist()} against "
+                  f"{r[f'q{q}_ids'].tolist()}")
+        err = max(float(np.abs(g[f"q{q}_scores"] - r[f"q{q}_scores"]).max()) for q in (1, MESH_Q))
+        check(err <= 1e-6, f"mesh {name} scores off by {err}")
+        gates[name] = {"ids_equal": True, "scores_max_abs_err": err}
+    dp, tp, single = got["train_dp"]["losses"], got["train_tp"]["losses"], ref["train_dp"]["losses"]
+    # Adam's first updates are about lr * sign(g): a gradient entry near 0
+    # that the ranks' sums round otherwise moves its parameter by up to
+    # 2 * lr, so the trajectories part a little more each step. TP runs the
+    # trunk on the whole batch, as the single card does; DP runs it on
+    # each rank's block, whose convs may round otherwise.
+    rel = lambda a, b: float(np.max(np.abs(a - b) / np.abs(b)))
+    dp_rel, tp_single_rel = rel(dp, single), rel(tp, single)
+    tp_rel, tp_rel_two = rel(tp, dp), rel(tp[:2], dp[:2])
+    check(dp_rel <= (1e-5 if n == 1 else 1e-4), f"mesh DP losses {dp} against {single}")
+    check(tp_single_rel <= 1e-5, f"mesh TP losses {tp} against the single card's {single}")
+    check(tp_rel_two <= 1e-5 and tp_rel <= 1e-4,
+          f"mesh TP losses {tp} against the DP steps' {dp}")
+    if n == 1:
+        check(dp[0] == single[0], "mesh DP first loss on one rank is not the single card's")
+    gates["train"] = {"dp_max_rel": dp_rel, "tp_vs_single_max_rel": tp_single_rel,
+                      "tp_vs_dp_max_rel": tp_rel, "tp_vs_dp_first_two_max_rel": tp_rel_two,
+                      "dp_bit_equal": bool(np.array_equal(dp, single)),
+                      "losses": {"single": single.tolist(), "dp": dp.tolist(), "tp": tp.tolist()},
+                      "build_then_step_seconds": {
+                          "single": ref["train_dp"]["seconds"].tolist(),
+                          "dp": got["train_dp"]["seconds"].tolist(),
+                          "tp": got["train_tp"]["seconds"].tolist()}}
+    return gates
+
+
+def mesh_results(path: str) -> dict:
+    out = {}
+    with np.load(path) as f:
+        for key in f.files:
+            step, name = key.split("__")
+            if name == "out":
+                out[step] = f[key]
+            else:
+                out.setdefault(step, {})[name] = f[key]
+    return out
+
+
+def phase_mesh(smi: str, ext, centers, images):
+    """Phase 12: the mesh paths in a world of one rank under NCCL and one of
+    two ranks sharing the card under gloo, against the single card."""
+    from pyvisim_tpu_torch.models import siamese as S
+    from pyvisim_tpu_torch.ops.kmeans import _seed_centers
+    from pyvisim_tpu_torch.parallel.local import LocalWorld
+
+    t_phase = time.perf_counter()
+    batch_probe = int8_batch_probe(images)
+    desc = ext.extract_batch(images)[0].to(torch.float32)
+    x = desc.reshape(-1, D).contiguous()
+    init = _seed_centers(torch.Generator(device=DEV).manual_seed(0), x,
+                         torch.ones(N_TRAIN, device=DEV), K, 65536)
+    train_x, train_y = mesh_train_batch()
+    inp = {"x": x.cpu().numpy(), "init": init.cpu().numpy(), "centers": centers,
+           "images": images, "grays": sift_gray_batch(SIFT_IMAGES, seed=0)[1],
+           "train_x": train_x, "train_y": train_y}
+
+    def single_trainer(mesh):
+        model = S.SiameseEmbedder("vgg16", embed_dim=128)
+        opt = S.adamw(MESH_TRAIN_LR)
+        return (S.create_train_state(model, opt, seed=0, device=DEV),
+                S.train_step(model, opt, loss="nt_xent"))
+
+    steps = MeshSteps()
+    ref, ref_timing = mesh_steps(steps.run, inp, dict.fromkeys(("data", "cluster", "model")),
+                                 single_trainer)
+    numbers = {"single": {"seconds": steps.seconds, "launches": steps.launches,
+                          "timing": ref_timing}, "int8_batch_probe": batch_probe}
+    log(f"mesh single card ({smi}): " + ", ".join(f"{k} {v:.3f} s"
+                                                  for k, v in steps.seconds.items()))
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="pyvisim_mesh_")
+    try:
+        path = os.path.join(tmp, "inputs.npz")
+        np.savez(path, **inp)
+        for name, n, backend in MESH_WORLDS:
+            t0 = time.perf_counter()
+            with LocalWorld(n, backend, DEV, threads=None, timeout_s=600) as world:
+                outs = world.run(mesh_job, path)
+            world_s = time.perf_counter() - t0
+            got = mesh_results(outs[0]["results"])
+            gates = mesh_gates(n, ref, got, x, desc, torch.from_numpy(centers).to(DEV),
+                               batch_probe)
+            for o in outs:
+                checked = {r["kernel"] for r in o["on_path_checks"]}
+                check(checked == MESH_CHECKED, f"mesh {name} rank {o['rank']}: kernels held "
+                      f"against their plain versions on the path {sorted(checked)}")
+                em = [r for r in o["on_path_checks"] if "ll_rel_err" in r]
+                check(em and len(em) < sum(r["kernel"] == "gmm_stats" for r in o["on_path_checks"]),
+                      f"mesh {name} rank {o['rank']}: kernel 2 not checked in both forms")
+                log(f"mesh {name} rank {o['rank']}: {len(o['on_path_checks'])} kernel calls held "
+                    f"against their plain versions on the path ("
+                    f"{o['on_path_check_seconds']:.1f} s): " + json.dumps(
+                        [{k: r[k] for k in ("step", "kernel", "input", "max_abs_err")}
+                         for r in o["on_path_checks"]]))
+                per_rank = {k: sum(o["launches"][s].get(k, 0) for s in o["launches"])
+                            for k in mesh_wrappers()}
+                check(all(per_rank.values()), f"mesh {name} rank {o['rank']} did not launch "
+                      f"every kernel: {per_rank}")
+                if n == 1:  # the cluster-sharded blocks are plain torch, as in JAX
+                    for s in MESH_STEPS[:5] + MESH_STEPS[7:-1]:
+                        check(o["launches"][s] == steps.launches[s],
+                              f"mesh {name} {s}: launches {o['launches'][s]} against the "
+                              f"single card's {steps.launches[s]}")
+                o["launches_total"] = per_rank
+                log(f"mesh {name} rank {o['rank']} ({o['backend']}, cuda:{o['device']}, "
+                    f"{smi}): " + ", ".join(f"{s} {o['seconds'][s]:.3f} s "
+                                            f"({o['staged_bytes'][s]} B staged)"
+                                            for s in MESH_STEPS))
+                t = o["timing"]
+                log(f"mesh {name} rank {o['rank']} ({smi}): Lloyd kernel {t['lloyd_kernel_ms']:.4f}"
+                    f" ms on {t['rows']} rows (single card {ref_timing['lloyd_kernel_ms']:.4f} ms "
+                    f"on {ref_timing['rows']}), EM kernel {t['em_kernel_ms']:.4f} ms (single "
+                    f"{ref_timing['em_kernel_ms']:.4f}), Q=1 query ms {t['query_q1_ms']} (single "
+                    f"{ref_timing['query_q1_ms']})")
+            numbers[name] = {"world_seconds": world_s, "gates": gates,
+                             "ranks": [{k: v for k, v in o.items() if k != "results"}
+                                       for o in outs]}
+            log(f"mesh {name}: world {world_s:.1f} s (spawn, build of nothing, every step)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    numbers["seconds"] = time.perf_counter() - t_phase
+    log(json.dumps({"mesh": numbers}, default=float))
+    return {k: sum(o["launches_total"][k] for w, _, _ in MESH_WORLDS
+                   for o in numbers[w]["ranks"]) for k in mesh_wrappers()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3198,7 +4087,7 @@ def run(flowers_root: pathlib.Path) -> int:
     from pyvisim_tpu_torch.ops.cuda import sift_window as sw
 
     t0 = time.perf_counter()
-    phase_environment(_build)
+    smi = phase_environment(_build)
     kernel = phase_kernel(agg, ls)
     vlad_rootsift_call, gmm_rootsift_call = rootsift_encode_calls()
     kernel["rootsift_vlad"] = check_vlad_rootsift(agg, ls, vlad_rootsift_call)
@@ -3263,6 +4152,10 @@ def run(flowers_root: pathlib.Path) -> int:
     kernel["launches_flowers102"] = launches11["vlad"]
     k7["launches_flowers102"] = launches11["k7"]
     k8["launches_flowers102"] = launches11["k8_pooled"] + launches11["k8_unpooled"]
+    torch.cuda.empty_cache()
+    launches12 = phase_mesh(smi, ext, centers, images)
+    for rec in (kernel, gmm_kernel, lloyd_kernel, *sift_kernels, k7, k8):
+        rec["launches_parallel"] = launches12[rec["name"]]
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [kernel, gmm_kernel, lloyd_kernel, *sift_kernels, k7, k8]}))
     print(json.dumps({

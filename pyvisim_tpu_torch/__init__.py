@@ -5,7 +5,8 @@ encoders and their Pipeline, on-device vocabulary learning with K-Means,
 GMM and PCA, cosine retrieval and its evaluation, gallery I/O and the
 serving index, the retrieval losses, ResNet trunks and the Siamese
 embedding trainer with its checkpoints, the Oxford Flowers-102 dataset,
-spectral clustering and the clustering evaluation) in PyTorch, with the JAX
+spectral clustering and the clustering evaluation, and their multi-rank
+paths on ``torch.distributed`` in ``parallel``) in PyTorch, with the JAX
 package's TPU kernels rewritten as CUDA kernels for Hopper. The module layout
 follows ``pyvisim_tpu`` so that each counterpart is found by name.
 
@@ -16,7 +17,7 @@ they raise instead of falling back to the CPU.
 __version__ = "0.1.0"
 
 __all__ = ["encoders", "features", "eval", "ops", "models", "io", "index", "datasets", "losses",
-           "neural_networks", "checkpoint", "profiling"]
+           "neural_networks", "checkpoint", "profiling", "parallel"]
 
 
 def __getattr__(name):

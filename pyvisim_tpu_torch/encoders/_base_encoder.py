@@ -7,8 +7,13 @@ and ``learn`` trains the PCA and the K-Means or GMM vocabulary on the
 device. Extractors with a device-resident variant (SIFT/RootSIFT) hand
 their descriptors to the encode core on the device. ``generate_encoding_map``
 decodes image files on a prefetch thread and encodes them in batches, into a
-``{path: vector}`` dict or an HDF5 file. The multi-device paths come with a
-later slice.
+``{path: vector}`` dict or an HDF5 file. An encoder on a mesh (its own
+``mesh``, else its extractor's) encodes with the batch split over 'data'
+(``parallel.sharded_encode``; on its extractor's own mesh each rank
+extracts and encodes its block alone, ``extract_block``) or, with a
+'cluster' axis, with the K axis
+split too (``parallel.cluster_sharded_*_encode``), and ``learn`` fits on
+the mesh (``parallel.distributed_*_fit``).
 """
 from __future__ import annotations
 
@@ -94,6 +99,24 @@ def _rowwise_adapter(
         return np.fromiter(pairs, dtype=np.float32, count=n * m).reshape(n, m)
 
     return adapted
+
+
+_SINGLE_CHIP_FIT_KWARGS = frozenset({"chunk_size", "init_subsample", "tol", "kmeans_iters"})
+
+
+def _mesh_fit_kwargs(kwargs: dict) -> dict:
+    """Translate single-card fit kwargs for the distributed fitters:
+    ``max_iters`` becomes ``n_iters``; knobs that exist only on the
+    single-card path are dropped with a log note."""
+    out = {}
+    for key, value in kwargs.items():
+        if key == "max_iters":
+            out["n_iters"] = value
+        elif key in _SINGLE_CHIP_FIT_KWARGS:
+            logger.info("learn() on a mesh ignores single-card kwarg %r", key)
+        else:
+            out[key] = value
+    return out
 
 
 def _tupleize_first_arg(func: Callable) -> Callable:
@@ -229,6 +252,7 @@ class ImageEncoderBase(SimilarityMetric):
         self._clustering_model = None
         self._pca = None
         self._similarity_func = None
+        self._mesh_override = None
         if device is None:
             device = getattr(feature_extractor, "device", None)
         self.device = resolve_device(device)
@@ -382,6 +406,22 @@ class ImageEncoderBase(SimilarityMetric):
             )
         self._pca = pca.to(self.device)
 
+    @property
+    def mesh(self):
+        """The mesh the encode runs on: one assigned to the encoder
+        (``encoder.mesh = m``) first, else the feature extractor's.
+
+        A mesh with a 'cluster' axis also splits the K centroid/component
+        axis over the ranks (``parallel.cluster_sharded_vlad_encode``).
+        """
+        if self._mesh_override is not None:
+            return self._mesh_override
+        return getattr(self._feature_extractor, "mesh", None)
+
+    @mesh.setter
+    def mesh(self, mesh):
+        self._mesh_override = mesh
+
     @abc.abstractmethod
     def _coerce_clustering_model(self, model):
         raise NotImplementedError
@@ -405,20 +445,62 @@ class ImageEncoderBase(SimilarityMetric):
             raise RuntimeError(
                 "No clustering model set. Pass weights= or clustering_model=."
             )
-        desc, mask = extract_for_encoding(self.feature_extractor, images)
-        out = self._encode_descriptors(desc, mask)
+        out = self._encode_descriptors(*self._extract(images))
         if not self._flatten and out.ndim == 3:
             out = out.reshape(-1, out.shape[-1])
         return out
 
-    def _encode_descriptors(self, desc, mask) -> np.ndarray:
+    def _encodes_blocks(self) -> bool:
+        """Whether the extractor hands this encode each rank's block alone:
+        the encoder runs on its extractor's own mesh, split over 'data'
+        only, and the extractor has ``extract_block``."""
+        mesh = self.mesh
+        return (mesh is not None and mesh is getattr(self._feature_extractor, "mesh", None)
+                and hasattr(self._feature_extractor, "extract_block")
+                and "cluster" not in (mesh.mesh_dim_names or ()))
+
+    def _extract(self, images) -> tuple:
+        """``(desc, mask, n)`` for ``_encode_descriptors``: the rank's block
+        and the batch's size where ``_encodes_blocks``, else the whole batch
+        and None."""
+        if self._encodes_blocks():
+            return self._feature_extractor.extract_block(images)
+        return (*extract_for_encoding(self._feature_extractor, images), None)
+
+    def _encode_descriptors(self, desc, mask, n: int | None = None) -> np.ndarray:
         """Run the encode core on an extracted ``(B, N, D)/(B, N)`` batch
-        (numpy or tensors) on the encoder's device; numpy out."""
+        (numpy or tensors) on the encoder's device, or on its mesh; numpy
+        out. With ``n``, ``desc``/``mask`` are this rank's block of a batch
+        of ``n`` images (``extract_block``). The one engine of ``encode``
+        and ``Pipeline.encode``."""
+        mesh = self.mesh
+        if n is not None:
+            from ..parallel.sharded import _encode_block
+
+            with torch.inference_mode():
+                out = _encode_block(self._encode_core, desc, mask, self._clustering_model,
+                                   self._pca, mesh, n)
+            return out.cpu().numpy()
         desc = torch.as_tensor(desc, device=self.device)
         mask = torch.as_tensor(mask, device=self.device)
         with torch.inference_mode():
-            out = self._encode_core(desc, mask, self._clustering_model, self._pca)
+            if mesh is None:
+                out = self._encode_core(desc, mask, self._clustering_model, self._pca)
+            elif "cluster" in (mesh.mesh_dim_names or ()):
+                out = self._encode_cluster_sharded(desc, mask, mesh)
+            else:
+                from ..parallel import sharded_encode
+
+                out = sharded_encode(self._encode_core, desc, mask, self._clustering_model,
+                                     self._pca, mesh)
         return out.cpu().numpy()
+
+    def _encode_cluster_sharded(self, desc, mask, mesh) -> torch.Tensor:
+        """Subclasses dispatch to their cluster-sharded encode."""
+        raise NotImplementedError(
+            f"{type(self).__name__} has no cluster-sharded encode; use a mesh without a "
+            "'cluster' axis."
+        )
 
     def learn(
         self,
@@ -442,6 +524,12 @@ class ImageEncoderBase(SimilarityMetric):
         ``dim_reduction_factor`` a PCA to ``dim // dim_reduction_factor``
         is fitted on the raw descriptors first. ``kwargs`` go to
         ``kmeans_fit`` or ``gmm_fit``.
+
+        On a mesh with a 'data' axis the PCA and the K-Means/GMM fits run
+        there (``parallel.distributed_{pca,kmeans,gmm}_fit``): descriptor
+        rows split over 'data' and the statistics are summed. ``max_iters``
+        becomes their ``n_iters``; single-card knobs (``chunk_size``,
+        ``tol``, ...) are dropped.
         """
         if isinstance(images, np.ndarray) and images.ndim == 3:
             images = [images]
@@ -488,20 +576,24 @@ class ImageEncoderBase(SimilarityMetric):
             type(self.feature_extractor).__name__,
             flat.shape[1],
         )
+        mesh = self.mesh
+        if mesh is not None and "data" in (mesh.mesh_dim_names or ()):
+            from .. import parallel
+
+            pca_fit = functools.partial(parallel.distributed_pca_fit, mesh=mesh)
+            fits = {"kmeans": parallel.distributed_kmeans_fit, "gmm": parallel.distributed_gmm_fit}
+            fit_kwargs = dict(_mesh_fit_kwargs(kwargs), mesh=mesh)
+        else:
+            pca_fit = functools.partial(pca_ops.pca_fit, device=self.device)
+            fits = {"kmeans": kmeans_ops.kmeans_fit, "gmm": gmm_ops.gmm_fit}
+            fit_kwargs = dict(kwargs, device=self.device)
         if dim_reduction_factor:
-            projector = pca_ops.pca_fit(
-                flat, flat.shape[1] // dim_reduction_factor, mask=flat_mask,
-                device=self.device,
-            )
+            projector = pca_fit(flat, flat.shape[1] // dim_reduction_factor, mask=flat_mask)
             self._pca = projector
             flat = projector(flat)
-        if self._vocabulary_kind == "kmeans":
-            fit = kmeans_ops.kmeans_fit
-        elif self._vocabulary_kind == "gmm":
-            fit = gmm_ops.gmm_fit
-        else:
+        if self._vocabulary_kind not in fits:
             raise ValueError("Unknown encoder class.")
-        model, _ = fit(flat, n_clusters, mask=flat_mask, device=self.device, **kwargs)
+        model, _ = fits[self._vocabulary_kind](flat, n_clusters, mask=flat_mask, **fit_kwargs)
         self._clustering_model = model
 
     @_tupleize_first_arg

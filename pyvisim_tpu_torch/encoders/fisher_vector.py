@@ -89,6 +89,27 @@ class FisherVectorEncoder(ImageEncoderBase):
             f"GaussianMixture, not {type(model)}"
         )
 
+    def _encode_cluster_sharded(self, desc, mask, mesh):
+        """The K component axis split over the mesh's 'cluster' axis: the
+        posterior's normaliser comes from a max and a sum all-reduce
+        (``parallel.cluster_sharded_fisher_encode``), after the PCA."""
+        from ..parallel import cluster_sharded_fisher_encode
+
+        desc = desc.to(torch.float32)
+        if self._pca is not None:
+            desc = self._pca(desc)
+        out = cluster_sharded_fisher_encode(
+            desc,
+            mask,
+            self._clustering_model,
+            mesh,
+            power_norm_weight=self._power_norm_weight,
+            norm_order=self._norm_order,
+            epsilon=self._epsilon,
+        )
+        # The replicated core's un-flattened row-vector shape.
+        return out if self._flatten else out[:, None, :]
+
     def _encode_core(self, desc, mask, clustering_model, pca):
         desc = desc.to(torch.float32)
         if pca is not None:

@@ -16,8 +16,7 @@ import torch
 from .._base_classes import SimilarityMetric
 from .._config import get_logger
 from .._utils import cosine_similarity
-from ._base_encoder import (ImageEncoderBase, _encode_paths_to_map, check_desired_output,
-                            extract_for_encoding)
+from ._base_encoder import ImageEncoderBase, _encode_paths_to_map, check_desired_output
 
 __all__ = ["Pipeline"]
 
@@ -56,25 +55,29 @@ class Pipeline(SimilarityMetric):
     def encode(self, images: Iterable[np.ndarray] | np.ndarray | torch.Tensor) -> np.ndarray:
         """Encode images with every encoder and hstack the results, with one
         extraction pass per distinct extractor instance; ``images`` as for
-        ``ImageEncoderBase.encode``."""
+        ``ImageEncoderBase.encode``. Each member encodes through its own
+        engine (``_encode_descriptors``), so a member on a mesh pads and
+        splits the batch there exactly as its ``encode`` does."""
         if isinstance(images, np.ndarray) and images.ndim == 3:
             images = [images]
         if not isinstance(images, (np.ndarray, torch.Tensor)):
             images = list(images)
 
-        features: dict[int, tuple] = {}
+        # Members on their extractor's mesh share its per-rank blocks, the
+        # others its whole batch.
+        features: dict[tuple, tuple] = {}
         for enc in self.encoders:
-            ext = enc.feature_extractor
-            if id(ext) not in features:
-                features[id(ext)] = extract_for_encoding(ext, images)
+            key = (id(enc.feature_extractor), enc._encodes_blocks())
+            if key not in features:
+                features[key] = enc._extract(images)
 
         all_encodings = []
         for enc in self.encoders:
-            desc, mask = features[id(enc.feature_extractor)]
+            desc, mask, n = features[(id(enc.feature_extractor), enc._encodes_blocks())]
             saved_flatten = enc.flatten
             enc.flatten = True
             try:
-                all_encodings.append(enc._encode_descriptors(desc, mask))
+                all_encodings.append(enc._encode_descriptors(desc, mask, n))
             finally:
                 enc.flatten = saved_flatten
         return np.hstack(all_encodings)

@@ -84,6 +84,26 @@ class VLADEncoder(ImageEncoderBase):
             f"not {type(model)}"
         )
 
+    def _encode_cluster_sharded(self, desc, mask, mesh):
+        """The K centroid axis split over the mesh's 'cluster' axis: each
+        rank scores its K/ranks centroids, and the global arg-min comes from
+        two min all-reduces (``parallel.cluster_sharded_vlad_encode``)."""
+        from ..parallel import cluster_sharded_vlad_encode
+
+        desc = desc.to(torch.float32)
+        if self._pca is not None:
+            desc = self._pca(desc)
+        return cluster_sharded_vlad_encode(
+            desc,
+            mask,
+            self._clustering_model.centers,
+            mesh,
+            power_norm_weight=self._power_norm_weight,
+            norm_order=self._norm_order,
+            epsilon=self._epsilon,
+            flatten=self._flatten,
+        )
+
     def _encode_core(self, desc, mask, clustering_model, pca):
         desc = desc.to(torch.float32)
         if pca is not None:

@@ -1,7 +1,9 @@
 """Retrieval evaluation: top-k retrieval, mAP, top-k accuracy.
 
 Port of ``pyvisim_tpu/eval.py``: batched query encoding, one cosine
-matmul on ``device`` (None means CUDA), and a vectorised AP.
+matmul on ``device`` (None means CUDA), or with ``mesh=`` split by query
+rows over the mesh's 'data' axis (``parallel.sharded_cosine_similarity``),
+and a vectorised AP.
 
 Semantics kept:
   * ``top_k_map`` computes AP with R = number of relevant items within
@@ -69,12 +71,21 @@ def _gallery(encoding_map):
     return paths, vectors
 
 
+def _similarities(query_vecs, gallery_vecs, device=None, mesh=None) -> np.ndarray:
+    if mesh is None:
+        return cosine_similarity(query_vecs, gallery_vecs, device=device)
+    from .parallel import sharded_cosine_similarity
+
+    return sharded_cosine_similarity(query_vecs, gallery_vecs, mesh).cpu().numpy()
+
+
 def retrieve_top_k_similar(
     uploaded_image: np.ndarray,
     dataset: dict[str, np.ndarray],
     encoder,
     k: int = 5,
     device=None,
+    mesh=None,
 ) -> list[tuple[str, float]]:
     """Top-k most similar gallery images to a query image.
 
@@ -82,7 +93,7 @@ def retrieve_top_k_similar(
     """
     all_paths, all_vectors = _gallery(dataset)
     query_vector = _encode_queries(encoder, uploaded_image)
-    scores = cosine_similarity(query_vector, all_vectors, device=device)[0]
+    scores = _similarities(query_vector, all_vectors, device, mesh)[0]
     top_k_indices = np.argsort(-scores)[:k]
     return [(all_paths[i], scores[i]) for i in top_k_indices]
 
@@ -94,9 +105,10 @@ def _ranked_relevance(
     query_labels: np.ndarray,
     k: int | None,
     device=None,
+    mesh=None,
 ) -> np.ndarray:
     """(Q, N_considered) boolean relevance in ranked order."""
-    sims = cosine_similarity(query_vecs, gallery_vecs, device=device)  # (Q, N)
+    sims = _similarities(query_vecs, gallery_vecs, device, mesh)  # (Q, N)
     order = np.argsort(-sims, axis=1, kind="stable")
     if k is not None:
         order = order[:, :k]
@@ -124,13 +136,16 @@ def top_k_map(
     k: int | None = None,
     batch_size: int = 64,
     device=None,
+    mesh=None,
 ) -> float:
-    """Mean Average Precision over queries."""
+    """Mean Average Precision over queries; ``mesh`` splits the similarity
+    product over its 'data' axis."""
     all_paths, all_vectors = _gallery(encoding_map)
     gallery_labels = np.array([path_labels_dict[p] for p in all_paths])
     query_labels = np.array(list(image_labels))
     query_vecs = _encode_queries(encoder, images, batch_size)
-    rel = _ranked_relevance(query_vecs, all_vectors, gallery_labels, query_labels, k, device)
+    rel = _ranked_relevance(query_vecs, all_vectors, gallery_labels, query_labels, k, device,
+                            mesh)
     return float(np.mean(average_precision(rel)))
 
 
@@ -143,11 +158,14 @@ def top_k_accuracy(
     k: int,
     batch_size: int = 64,
     device=None,
+    mesh=None,
 ) -> float:
-    """Fraction of queries with >= 1 same-label hit in the top k."""
+    """Fraction of queries with >= 1 same-label hit in the top k; ``mesh``
+    splits the similarity product over its 'data' axis."""
     all_paths, all_vectors = _gallery(encoding_map)
     gallery_labels = np.array([path_labels_dict[p] for p in all_paths])
     query_labels = np.array(list(image_labels))
     query_vecs = _encode_queries(encoder, images, batch_size)
-    rel = _ranked_relevance(query_vecs, all_vectors, gallery_labels, query_labels, k, device)
+    rel = _ranked_relevance(query_vecs, all_vectors, gallery_labels, query_labels, k, device,
+                            mesh)
     return float(np.mean(rel.any(axis=1)))

@@ -7,8 +7,11 @@ image by image on the host (``backend="opencv"``, the JAX package's golden
 route). ``DeepConvFeature`` is a
 VGG trunk (``models/vgg.py``), or a custom module such as a ResNet trunk
 (``models/resnet.py``), whose conv map is flattened into descriptors, with
-a batched device path. The multi-device (mesh) SIFT
-path is not ported.
+a batched device path. Given ``mesh=`` (a ``parallel.make_mesh`` mesh with
+a 'data' axis), ``SIFT``/``RootSIFT`` and ``DeepConvFeature`` split each
+batch over the ranks of 'data' and gather the descriptors; their
+``extract_block`` keeps each rank's block where it is, for an encoder on
+the same mesh.
 """
 from __future__ import annotations
 
@@ -70,6 +73,19 @@ def _to_gray_u8(image: np.ndarray) -> np.ndarray:
     return image.astype(np.uint8)
 
 
+def _deep_device_batch() -> int:
+    return int(os.environ.get("PYVISIM_DEEP_DEVICE_BATCH", "128"))
+
+
+def _extractor_device(device, mesh) -> torch.device:
+    """An extractor's device: the one given, else the mesh's, else CUDA."""
+    if device is None and mesh is not None:
+        from ..parallel.mesh import mesh_device
+
+        return mesh_device(mesh)
+    return resolve_device(device)
+
+
 class SIFT(FeatureExtractorBase):
     """Scale-Invariant Feature Transform extractor, 128-D descriptors.
 
@@ -80,7 +96,11 @@ class SIFT(FeatureExtractorBase):
     :param max_keypoints: static keypoint budget N_max of the torch backend.
     :param process_size: static letterbox resolution of the torch backend.
     :param device: where SIFT runs (the torch backend) and where encoders
-        built on this extractor run; None means CUDA.
+        built on this extractor run; None means CUDA (the mesh's device
+        with ``mesh``).
+    :param mesh: optional mesh with a 'data' axis: ``extract_batch`` of the
+        torch backend runs ``parallel.sharded_sift_batch``, each rank
+        describing its block of the images.
     """
 
     def __init__(
@@ -89,11 +109,13 @@ class SIFT(FeatureExtractorBase):
         max_keypoints: int = 2048,
         process_size: int = 512,
         device=None,
+        mesh=None,
     ):
         super().__init__()
         if backend not in ("torch", "opencv"):
             raise ValueError(f"Unknown SIFT backend: {backend!r}")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = _extractor_device(device, mesh)
         self._output_dim = 128
         self.backend = backend
         self.max_keypoints = max_keypoints
@@ -144,18 +166,44 @@ class SIFT(FeatureExtractorBase):
         opencv backend: image by image, padded to the most descriptors)."""
         if self.backend == "opencv":
             return super().extract_batch(images)
+        if self.mesh is not None:
+            from ..parallel import sharded_sift_batch
+
+            return sharded_sift_batch(self._grays(images), self.mesh, cfg=self._sift_cfg,
+                                      root_sift=self._root)
         return sift_ops.sift_batch(
             self._grays(images), max_keypoints=self.max_keypoints, root_sift=self._root,
             cfg=self._sift_cfg, run_on=self.device,
         )
+
+    def extract_block(self, images):
+        """``(desc, mask, n)``: this rank's block of the batch on the mesh,
+        described by this rank alone and left on the device, and the
+        batch's size ``n``. The block is rows ``[r*s, (r+1)*s)`` of the
+        batch padded with blank images to ``s`` per rank of 'data', so an
+        encoder on the same mesh encodes the descriptors where they are and
+        gathers the encodings alone."""
+        from ..parallel.sharded import _list_block, _padded_rows
+
+        if self.backend == "opencv":
+            desc, mask = self.extract_batch(images)
+            (desc, mask), n = _padded_rows(self.mesh, torch.as_tensor(desc),
+                                           torch.as_tensor(mask))
+            return desc, mask, n
+        mine, n = _list_block(self._grays(images), self.mesh)
+        desc, mask = sift_ops.sift_batch(
+            mine, max_keypoints=self.max_keypoints, root_sift=self._root,
+            cfg=self._sift_cfg, device=True, run_on=self.device,
+        )
+        return desc, mask, n
 
     def extract_batch_device(self, images):
         """As ``extract_batch``, but the results stay on the device as
         tensors (f32, root-SIFT applied there), so an encoder that follows
         on the device needs no copies. More than 16 device calls' worth of
         images take ``extract_batch``, so a gallery pins no device memory;
-        the opencv backend always does."""
-        if self.backend == "opencv":
+        the opencv backend and a mesh always do."""
+        if self.backend == "opencv" or self.mesh is not None:
             return self.extract_batch(images)
         if not isinstance(images, np.ndarray):
             images = list(images)
@@ -181,9 +229,10 @@ class RootSIFT(SIFT):
         max_keypoints: int = 2048,
         process_size: int = 512,
         device=None,
+        mesh=None,
     ):
         super().__init__(backend=backend, max_keypoints=max_keypoints,
-                         process_size=process_size, device=device)
+                         process_size=process_size, device=device, mesh=mesh)
         self._root = True
 
 
@@ -246,7 +295,11 @@ class DeepConvFeature(FeatureExtractorBase):
         scales; trunk-encoding cosine vs float32 > 0.999), and each conv
         followed by a pool through a fused conv + ReLU + pool kernel; see
         ``models/vgg.py``. Ignored for custom modules.
-    :param device: where the trunk runs; None means CUDA.
+    :param device: where the trunk runs; None means CUDA (the mesh's device
+        with ``mesh``).
+    :param mesh: optional mesh with a 'data' axis: each rank runs the trunk
+        on its block of a batch (padded to divide), and the descriptors are
+        gathered.
     """
 
     def __init__(
@@ -261,9 +314,11 @@ class DeepConvFeature(FeatureExtractorBase):
         module: nn.Module | None = None,
         int8: bool = False,
         device=None,
+        mesh=None,
     ):
         super().__init__()
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = _extractor_device(device, mesh)
         self.cfg_name = cfg_name
         self.layer_index = layer_index
         self.spatial_encoding = spatial_encoding
@@ -325,7 +380,7 @@ class DeepConvFeature(FeatureExtractorBase):
             cfg_name=self.cfg_name, layer_index=self.layer_index,
             spatial_encoding=self.spatial_encoding, image_size=self.image_size,
             transform=self.transform, dtype=self.dtype, module=value,
-            device=self.device,
+            device=self.device, mesh=self.mesh,
         )
 
     @property
@@ -395,6 +450,19 @@ class DeepConvFeature(FeatureExtractorBase):
         x = self.transform(images) if self.transform else self._preprocess(images)
         return self._forward_features(x)
 
+    def _run_forward(self, batch: torch.Tensor, preprocessed: bool) -> torch.Tensor:
+        """A uniform batch through ``_forward`` (raw) or ``_forward_features``
+        (preprocessed); on a mesh, each rank runs its block of the batch
+        padded to divide over 'data', and the blocks are gathered."""
+        fn = self._forward_features if preprocessed else self._forward
+        if self.mesh is None:
+            return fn(batch)
+        from ..parallel._collectives import all_gather
+        from ..parallel.sharded import _padded_rows
+
+        (block,), b = _padded_rows(self.mesh, batch)
+        return all_gather(fn(block), self.mesh, "data")[:b]
+
     def _to_device(self, array) -> torch.Tensor:
         return torch.as_tensor(np.asarray(array)).to(self.device)
 
@@ -404,42 +472,64 @@ class DeepConvFeature(FeatureExtractorBase):
         desc = self._forward(self._to_device(image)[None])
         return desc[0].to(torch.float32).cpu().numpy()
 
+    def _device_batch(self, images) -> tuple[torch.Tensor, bool]:
+        """Images as one device batch and whether it is preprocessed: a
+        tensor batch (e.g. from io.prefetch_to_device) or a uniform batch
+        as it is, a ragged list resized image by image."""
+        if torch.is_tensor(images):
+            return (images[None] if images.ndim == 3 else images).to(self.device), False
+        if isinstance(images, np.ndarray) and images.ndim == 4:
+            return self._to_device(images), False
+        if len({np.asarray(i).shape for i in images}) == 1:
+            return self._to_device(np.stack([np.asarray(i) for i in images])), False
+        prep = self.transform or self._preprocess
+        return torch.cat([prep(self._to_device(i)[None]) for i in images]), True
+
     def extract_batch(self, images):
         """``(desc (B, N, D), mask (B, N))`` for a batch or list of images,
         or a ``(B, H, W, 3)`` tensor.
 
         A uniform batch runs as one device batch, a ragged list is resized
         image by image and then runs as one. More than
-        ``PYVISIM_DEEP_DEVICE_BATCH`` (default 128) images run in chunks of
-        that size, gathered on the host as numpy, so an unbounded gallery
-        pins no device memory.
+        ``PYVISIM_DEEP_DEVICE_BATCH`` (default 128) images in a list or
+        array run in chunks of that size, gathered on the host as numpy, so
+        an unbounded gallery pins no device memory.
         """
-        if torch.is_tensor(images):
-            # A tensor batch (e.g. from io.prefetch_to_device) runs as it is.
-            desc = self._forward((images[None] if images.ndim == 3 else images).to(self.device))
-            return desc, torch.ones(desc.shape[:2], dtype=torch.float32, device=desc.device)
+        if not torch.is_tensor(images):
+            if isinstance(images, np.ndarray) and images.ndim == 3:
+                images = [images]
+            if not isinstance(images, np.ndarray):
+                images = list(images)
+            cap = _deep_device_batch()
+            n = len(images)
+            if n > cap:
+                parts = [self.extract_batch(images[i : i + cap]) for i in range(0, n, cap)]
+                return (
+                    np.concatenate([p[0].to(torch.float32).cpu().numpy() for p in parts]),
+                    np.concatenate([p[1].cpu().numpy() for p in parts]),
+                )
+        desc = self._run_forward(*self._device_batch(images))
+        return desc, torch.ones(desc.shape[:2], dtype=torch.float32, device=desc.device)
+
+    def extract_block(self, images):
+        """``(desc, mask, n)``: this rank's block of ``extract_batch`` on the
+        mesh, left on the device, and the batch's size ``n``. Each rank runs
+        the trunk on its block of the padded batch only (in chunks of
+        ``PYVISIM_DEEP_DEVICE_BATCH``), so an encoder on the same mesh
+        encodes the descriptors where they are and gathers the encodings
+        alone."""
+        from ..parallel.sharded import _padded_rows
+
         if isinstance(images, np.ndarray) and images.ndim == 3:
             images = [images]
-        if not isinstance(images, np.ndarray):
+        if not isinstance(images, (np.ndarray, torch.Tensor)):
             images = list(images)
-        cap = int(os.environ.get("PYVISIM_DEEP_DEVICE_BATCH", "128"))
-        n = len(images)
-        if n > cap:
-            parts = [self.extract_batch(images[i : i + cap]) for i in range(0, n, cap)]
-            return (
-                np.concatenate([p[0].to(torch.float32).cpu().numpy() for p in parts]),
-                np.concatenate([p[1].cpu().numpy() for p in parts]),
-            )
-        if isinstance(images, np.ndarray) and images.ndim == 4:
-            desc = self._forward(self._to_device(images))
-        elif len({np.asarray(i).shape for i in images}) == 1:
-            desc = self._forward(self._to_device(np.stack([np.asarray(i) for i in images])))
-        else:
-            prep = self.transform or self._preprocess
-            pre = [prep(self._to_device(i)[None]) for i in images]
-            desc = self._forward_features(torch.cat(pre))
-        mask = torch.ones(desc.shape[:2], dtype=torch.float32, device=desc.device)
-        return desc, mask
+        batch, preprocessed = self._device_batch(images)
+        (block,), n = _padded_rows(self.mesh, batch)
+        fn = self._forward_features if preprocessed else self._forward
+        cap = _deep_device_batch()
+        desc = torch.cat([fn(block[i : i + cap]) for i in range(0, len(block), cap)])
+        return desc, torch.ones(desc.shape[:2], dtype=torch.float32, device=desc.device), n
 
     def __repr__(self):
         return (

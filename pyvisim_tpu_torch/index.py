@@ -24,8 +24,17 @@ Differences from the JAX package, none of which changes a result:
   loads in the other: the exact modes (float32, int8) give the same
   results, and the screened modes regenerate their own screen, which may
   rank other candidates.
-* There is no ``mesh=``; ``device=`` (None means CUDA) says where the
-  gallery lives.
+* ``device=`` (None means CUDA) says where the gallery lives. With
+  ``mesh=`` (a ``parallel.make_mesh`` mesh with a 'data' axis) its rows
+  are split over the ranks of 'data' in contiguous blocks, the capacity
+  rounded up to a multiple of the axis size, with each block's int8 scales
+  and JL screen rows beside it on its rank. A query scores each rank's
+  rows, takes a local top-k, and merges the candidates by (score
+  descending, global row ascending), ``lax.top_k``'s order, which is what
+  the unsharded index answers; a screened query merges the local screens'
+  top-r into the global top-r and rescores each candidate on the rank that
+  holds it. Every rank calls every method with the same global arguments
+  and gets the same global answer; ``save`` writes from the world's rank 0.
 """
 from __future__ import annotations
 
@@ -116,6 +125,32 @@ def _as_rows(vectors, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(vectors, np.float32)).to(device)
 
 
+def _merge_top_k(scores: torch.Tensor, ids: torch.Tensor, k: int, mesh):
+    """The global top ``k`` of the ranks' local (Q, k) lists, each in
+    ``_top_k``'s order with global row ids. Gathered in rank order, equal
+    scores stand in ascending row order (rank blocks are ascending), so
+    one stable sort gives ``lax.top_k``'s order."""
+    from .parallel._collectives import all_gather
+
+    scores = all_gather(scores, mesh, "data", dim=1)
+    ids = all_gather(ids, mesh, "data", dim=1)
+    top, pos = _top_k(scores, k)
+    return top, torch.gather(ids, 1, pos)
+
+
+def _padded_top_k(scores: torch.Tensor, k: int, offset: int):
+    """A rank's local top ``k`` with global ids, padded with -inf scores
+    (and id -1) to ``k`` columns when it holds fewer rows."""
+    top, idx = _top_k(scores, k)
+    idx = idx + offset
+    short = k - top.shape[1]
+    if short:
+        q = scores.shape[0]
+        top = torch.cat([top, top.new_full((q, short), -torch.inf)], dim=1)
+        idx = torch.cat([idx, idx.new_full((q, short), -1)], dim=1)
+    return top, idx
+
+
 class RetrievalIndex:
     """Normalised gallery matrix + paths/labels with a top-k query.
 
@@ -137,7 +172,9 @@ class RetrievalIndex:
         exact full scan whenever ``Q * rerank * 15 >= n``, the JAX
         package's crossover; False forces the screened route.
     :param device: where the gallery lives and queries run; None means
-        CUDA.
+        CUDA (the mesh's device with ``mesh``).
+    :param mesh: optional mesh; the gallery's rows are then split over its
+        'data' axis.
     """
 
     def __init__(
@@ -150,31 +187,41 @@ class RetrievalIndex:
         rerank: int | None = None,
         auto_exact: bool = True,
         device=None,
+        mesh=None,
         _scales=None,
     ):
+        self.mesh = mesh
+        if device is None and mesh is not None:
+            from .parallel.mesh import mesh_device
+
+            device = mesh_device(mesh)
         self.device = resolve_device(device)
+        shape = tuple(vectors.shape) if hasattr(vectors, "shape") else np.shape(vectors)
+        if len(shape) != 2 or len(paths) != shape[0]:
+            raise ValueError(
+                f"vectors must be (N, D) with N == len(paths); got "
+                f"{shape} and {len(paths)} paths"
+            )
+        # This rank's rows of the initial layout (all of them unsharded).
+        cap = self._capacity(shape[0])
+        start, stop = self._owned(shape[0], cap)
         if _scales is None:
-            vectors = _as_rows(vectors, self.device)
+            vectors = _as_rows(vectors[start:stop], self.device)
         else:
             # An int8 reload (``load``): the saved codes and scales are kept
             # as they are, and the float rows, for the screen, are their
             # product.
-            codes = torch.as_tensor(np.asarray(vectors, np.int8)).to(self.device)
-            scales = torch.as_tensor(np.asarray(_scales, np.float32)).to(self.device)
+            codes = torch.as_tensor(np.asarray(vectors[start:stop], np.int8)).to(self.device)
+            scales = torch.as_tensor(np.asarray(_scales[start:stop], np.float32)).to(self.device)
             vectors = codes.to(torch.float32) * scales
-        if vectors.ndim != 2 or len(paths) != vectors.shape[0]:
-            raise ValueError(
-                f"vectors must be (N, D) with N == len(paths); got "
-                f"{tuple(vectors.shape)} and {len(paths)} paths"
-            )
         if quantize not in (None, "int8"):
             raise ValueError(f"Unknown quantize mode: {quantize!r}")
         if rerank is not None and screen_dim is None:
             raise ValueError("rerank= requires screen_dim=")
-        if screen_dim is not None and screen_dim >= vectors.shape[1]:
+        if screen_dim is not None and screen_dim >= shape[1]:
             raise ValueError(
                 f"screen_dim={screen_dim} must be < vector dim "
-                f"{vectors.shape[1]} (screening only pays below full rank)"
+                f"{shape[1]} (screening only pays below full rank)"
             )
         with torch.no_grad(), full_f32():
             if _scales is None:
@@ -185,7 +232,7 @@ class RetrievalIndex:
             self._proj = None
             screen = None
             if screen_dim is not None:
-                self._proj = _jl_projection(vectors.shape[1], screen_dim).to(self.device)
+                self._proj = _jl_projection(shape[1], screen_dim).to(self.device)
                 screen = vectors @ self._proj
             if quantize != "int8":
                 scales = None
@@ -193,14 +240,52 @@ class RetrievalIndex:
                 vectors, scales = _quantize_rows(vectors)
             else:
                 vectors = codes
-            cap = _capacity(vectors.shape[0])
-            self.vectors = _with_capacity(vectors, cap)
-            self.scales = _with_capacity(scales, cap)
-            self._screen = _with_capacity(screen, cap)
-        self._n = vectors.shape[0]
+            per = cap // self._parts()
+            self.vectors = _with_capacity(vectors, per)
+            self.scales = _with_capacity(scales, per)
+            self._screen = _with_capacity(screen, per)
+        self._n = shape[0]
         self.quantize = quantize
         self.paths = list(paths)
         self.labels = None if labels is None else np.asarray(labels)
+
+    def _parts(self) -> int:
+        """The number of row blocks: the size of the mesh's 'data' axis."""
+        if self.mesh is None:
+            return 1
+        from .parallel.mesh import axis_size
+
+        return axis_size(self.mesh, "data")
+
+    def _capacity(self, n: int) -> int:
+        """Global capacity for ``n`` rows: a power of two, rounded up to a
+        multiple of the block count."""
+        parts = self._parts()
+        return -(-_capacity(n) // parts) * parts
+
+    def _owned(self, n: int, cap: int) -> tuple[int, int]:
+        """The global rows ``[start, stop)`` of ``n`` live ones that this
+        rank holds at capacity ``cap``."""
+        per = cap // self._parts()
+        start = 0
+        if self.mesh is not None:
+            from .parallel.mesh import axis_index
+
+            start = axis_index(self.mesh, "data") * per
+        return start, max(start, min(n, start + per))
+
+    def _local(self) -> tuple[int, int]:
+        """This rank's first global row and its number of live rows."""
+        start, stop = self._owned(self._n, self.vectors.shape[0] * self._parts())
+        return start, stop - start
+
+    def _global_rows(self, buf: torch.Tensor) -> torch.Tensor:
+        """The first ``len(self)`` global rows of a per-rank buffer."""
+        if self.mesh is not None:
+            from .parallel._collectives import all_gather
+
+            buf = all_gather(buf, self.mesh, "data")
+        return buf[: self._n]
 
     def add(
         self,
@@ -241,14 +326,23 @@ class RetrievalIndex:
             n0 = self._n
             total = n0 + new.shape[0]
             parts = [(self.vectors, new), (self.scales, new_scales), (self._screen, new_screen)]
-            if total > self.vectors.shape[0]:
-                cap = _capacity(total)
-                parts = [(_with_capacity(None if buf is None else buf[:n0], cap), rows)
-                         for buf, rows in parts]
-            for buf, rows in parts:
-                if buf is not None:
-                    buf[n0:total] = rows
-            self.vectors, self.scales, self._screen = (buf for buf, _ in parts)
+            if total > self.vectors.shape[0] * self._parts():
+                # Past capacity: every block moves to the new layout.
+                cap = self._capacity(total)
+                start, stop = self._owned(total, cap)
+                bufs = [None if buf is None else _with_capacity(
+                    torch.cat([self._global_rows(buf), rows])[start:stop],
+                    cap // self._parts()) for buf, rows in parts]
+            else:
+                start, _ = self._local()
+                bufs = []
+                for buf, rows in parts:
+                    if buf is not None:
+                        lo, hi = max(n0, start), min(total, start + buf.shape[0])
+                        if lo < hi:
+                            buf[lo - start : hi - start] = rows[lo - n0 : hi - n0]
+                    bufs.append(buf)
+            self.vectors, self.scales, self._screen = bufs
         self.paths.extend(paths)
         if labels is not None:
             self.labels = np.concatenate([self.labels, np.asarray(labels)])
@@ -261,6 +355,7 @@ class RetrievalIndex:
         image_paths: Iterable[str],
         labels: Sequence[int] | None = None,
         batch_size: int = 64,
+        mesh=None,
         **index_kwargs,
     ) -> "RetrievalIndex":
         """Encode a gallery from image files (decoded by ``io.imread_rgb``)
@@ -275,12 +370,12 @@ class RetrievalIndex:
             chunks.append(np.asarray(encoder.encode(imgs)))
         vectors = np.vstack(chunks)
         logger.info("indexed %d images (%d-D)", len(paths), vectors.shape[1])
-        return cls(vectors, paths, labels, **index_kwargs)
+        return cls(vectors, paths, labels, mesh=mesh, **index_kwargs)
 
     @classmethod
     def from_encoding_map(
         cls, encoding_map, labels=None, quantize=None, screen_dim=None,
-        rerank=None, auto_exact=True, device=None,
+        rerank=None, auto_exact=True, device=None, mesh=None,
     ) -> "RetrievalIndex":
         """From a ``{path: vector}`` dict, or from the HDF5 path written by
         ``generate_encoding_map(save_path=...)``."""
@@ -288,7 +383,7 @@ class RetrievalIndex:
 
         paths, vectors = _gallery(encoding_map)
         return cls(vectors, paths, labels, quantize=quantize, screen_dim=screen_dim,
-                   rerank=rerank, auto_exact=auto_exact, device=device)
+                   rerank=rerank, auto_exact=auto_exact, device=device, mesh=mesh)
 
     def __len__(self) -> int:
         return self._n
@@ -307,37 +402,57 @@ class RetrievalIndex:
 
     def _query(self, q: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
         """(Q, D) float32 queries on the device -> (scores, indices) (Q, k)."""
-        n = self._n
+        start, n = self._local()
         r = self._route(q.shape[0], k)
         with torch.no_grad(), full_f32():
             qn = q / torch.clamp(torch.linalg.vector_norm(q, dim=1, keepdim=True), min=1e-12)
             if r is not None:
                 return self._screened(qn, k, r)
-            if self.quantize == "int8":
+            if self.quantize == "int8" and n == 0:  # a rank that holds no live row yet
+                sims = qn.new_zeros((qn.shape[0], 0))
+            elif self.quantize == "int8":
                 q8, q_scale = _quantize_rows(qn)
                 acc = int8_accumulators(q8, self._scanned_codes())[:, :n]
                 sims = acc.to(torch.float32) * q_scale * self.scales[:n].T
             else:
                 sims = qn @ self.vectors[:n].T
-            return _top_k(sims, k)
+            if self.mesh is None:
+                return _top_k(sims, k)
+            return _merge_top_k(*_padded_top_k(sims, k, start), k, self.mesh)
 
     def _scanned_codes(self) -> torch.Tensor:
-        """The int8 rows an int8 scan reads: the live rows, rounded up to a
-        multiple of 8 where the capacity holds them (``torch._int_mm``'s
-        rule; the padding rows' sums are dropped)."""
-        n8 = -(-self._n // 8) * 8
-        return self.vectors[: n8 if n8 <= self.vectors.shape[0] else self._n]
+        """The int8 rows an int8 scan reads: this rank's live rows, rounded
+        up to a multiple of 8 where the capacity holds them
+        (``torch._int_mm``'s rule; the padding rows' sums are dropped)."""
+        _, n = self._local()
+        n8 = -(-n // 8) * 8
+        return self.vectors[: n8 if n8 <= self.vectors.shape[0] else n]
 
     def _screened(self, qn: torch.Tensor, k: int, r: int):
         """Scan the JL screen, gather the top-r candidates' full rows and
-        rescore them exactly."""
-        n = self._n
+        rescore them exactly (on a mesh: each candidate on the rank that
+        holds it)."""
+        start, n = self._local()
         sims_s = (qn @ self._proj) @ self._screen[:n].T
-        _, cand = _top_k(sims_s, r)  # (Q, r)
-        rows = self.vectors.index_select(0, cand.reshape(-1)).view(*cand.shape, -1)
+        if self.mesh is None:
+            _, cand = _top_k(sims_s, r)  # (Q, r)
+        else:
+            _, cand = _merge_top_k(*_padded_top_k(sims_s, r, start), r, self.mesh)
+            # Rows screened on different ranks may score an ulp apart where
+            # one product scores them alike: in row order, exact ties rank
+            # as the unsharded index ranks them.
+            cand, _ = torch.sort(cand, dim=1)
+        local = cand - start
+        owned = (local >= 0) & (local < n)
+        local = torch.where(owned, local, 0)
+        rows = self.vectors.index_select(0, local.reshape(-1)).view(*cand.shape, -1)
         if self.quantize == "int8":
-            rows = rows.to(torch.float32) * self.scales[cand]
+            rows = rows.to(torch.float32) * self.scales[local]
         exact = torch.einsum("qd,qrd->qr", qn, rows)
+        if self.mesh is not None:
+            from .parallel._collectives import all_reduce
+
+            exact = all_reduce(torch.where(owned, exact, 0.0), self.mesh, "data")
         scores, pos = _top_k(exact, k)
         return scores, torch.gather(cand, 1, pos)
 
@@ -365,26 +480,40 @@ class RetrievalIndex:
         """Persist vectors/paths/labels (and int8 scales) to .npz, in the
         JAX package's layout. Screen mode stores only ``(screen_dim, rerank,
         auto_exact)``: the seed-fixed projection and the screen gallery are
-        regenerated at load."""
-        n = self._n
+        regenerated at load. On a mesh every rank calls it, the rows are
+        gathered, the world's rank 0 writes, and all ranks wait for the
+        file."""
+        vectors = self._global_rows(self.vectors).cpu().numpy()
         extra = {}
         if self.quantize == "int8":
-            extra["scales"] = self.scales[:n].cpu().numpy()
+            extra["scales"] = self._global_rows(self.scales).cpu().numpy()
         if self.screen_dim is not None:
             extra["screen"] = np.array(
                 [self.screen_dim, self.rerank if self.rerank else 0, int(self.auto_exact)],
                 np.int64,
             )
+        if self.mesh is not None:
+            import torch.distributed as dist
+
+            from .parallel._collectives import barrier
+
+            if dist.get_rank() != 0:
+                barrier()
+                return
         np.savez(
             path,
-            vectors=self.vectors[:n].cpu().numpy(),
+            vectors=vectors,
             paths=np.array(self.paths),
             labels=np.array([], np.int64) if self.labels is None else self.labels,
             **extra,
         )
+        if self.mesh is not None:
+            barrier()
 
     @classmethod
-    def load(cls, path: str, device=None) -> "RetrievalIndex":
+    def load(cls, path: str, device=None, mesh=None) -> "RetrievalIndex":
+        """An index from a ``save`` file of either stack; with ``mesh``
+        its rows are split over the mesh's 'data' axis again."""
         with np.load(path, allow_pickle=False) as data:
             labels = data["labels"] if data["labels"].size else None
             vectors = data["vectors"]
@@ -400,6 +529,6 @@ class RetrievalIndex:
                 # package dequantises and quantises again, which gives back
                 # the codes, but a scale can move by one unit in the last
                 # place: 127 * scale / 127 is not always the scale.)
-                return cls(vectors, paths, labels, quantize="int8", device=device,
+                return cls(vectors, paths, labels, quantize="int8", device=device, mesh=mesh,
                            _scales=data["scales"], **kw)
-            return cls(vectors, paths, labels, device=device, **kw)
+            return cls(vectors, paths, labels, device=device, mesh=mesh, **kw)

@@ -44,6 +44,7 @@ __all__ = [
     "adam",
     "create_train_state",
     "make_loss_fn",
+    "embedding_loss",
     "train_step",
     "embed",
     "params_from_jax",
@@ -138,6 +139,10 @@ class SiameseEmbedder(nn.Module):
     def _cast(self, t: torch.Tensor) -> torch.Tensor:
         return t.to(self.dtype)
 
+    def _dense(self, x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
+        """One layer of the projection head (the mesh trainer shards it)."""
+        return F.linear(x, self._cast(layer.weight), self._cast(layer.bias))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self._cast(x.permute(0, 3, 1, 2))  # channels-last strides
         for conv_i in self._plan:
@@ -147,8 +152,8 @@ class SiameseEmbedder(nn.Module):
             conv = getattr(self, f"conv{conv_i}")
             x = torch.relu(F.conv2d(x, self._cast(conv.weight), self._cast(conv.bias), padding=1))
         x = self._cast(self.gem(x))
-        x = torch.relu(F.linear(x, self._cast(self.fc1.weight), self._cast(self.fc1.bias)))
-        x = F.linear(x, self._cast(self.fc2.weight), self._cast(self.fc2.bias))
+        x = torch.relu(self._dense(x, self.fc1))
+        x = self._dense(x, self.fc2)
         norm = torch.linalg.vector_norm(x, dim=-1, keepdim=True)
         return x / torch.maximum(norm, norm.new_tensor(1e-12))
 
@@ -157,11 +162,14 @@ class SiameseEmbedder(nn.Module):
 class TrainState:
     """``params``: the embedder's parameters by name (leaf tensors that
     require grad); ``opt_state``: the optimizer bound to them; ``step``: the
-    number of steps taken."""
+    number of steps taken; ``shardings``: for a state on a mesh
+    (``parallel.shard_train_state``), each parameter's
+    ``parallel.NamedSharding``, else None."""
 
     params: Dict[str, torch.Tensor]
     opt_state: torch.optim.Optimizer
     step: int = 0
+    shardings: Optional[Dict[str, Any]] = None
 
 
 def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
@@ -201,22 +209,28 @@ def make_loss_fn(model: SiameseEmbedder, loss: str = "nt_xent", **loss_kwargs) -
 
     def loss_fn(params, images, labels):
         emb = functional_call(model, params, (images,))
-        labels = torch.as_tensor(labels, device=emb.device)
-        if loss == "nt_xent":
-            return nt_xent_loss(emb, labels, **loss_kwargs)
-        if loss in ("arcface", "cosface"):
-            return margin_softmax_loss(emb, labels, params["class_weights"], kind=loss,
-                                       **loss_kwargs)
-        d = torch.sum((emb[:, None, :] - emb[None, :, :]) ** 2, dim=-1)
-        same = labels[:, None] == labels[None, :]
-        eye = torch.eye(labels.shape[0], dtype=torch.bool, device=emb.device)
-        hardest_pos = torch.amax(torch.where(same & ~eye, d, torch.zeros_like(d)), dim=1)
-        hardest_neg = torch.amin(torch.where(~same, d, torch.full_like(d, torch.inf)), dim=1)
-        margin = loss_kwargs.get("margin", 0.2)
-        gap = hardest_pos - hardest_neg + margin
-        return torch.mean(torch.maximum(gap, gap.new_tensor(0.0)))
+        return embedding_loss(loss, emb, labels, params.get("class_weights"), **loss_kwargs)
 
     return loss_fn
+
+
+def embedding_loss(loss: str, emb: torch.Tensor, labels, class_weights=None,
+                   **loss_kwargs) -> torch.Tensor:
+    """The batch loss of embeddings ``emb (B, E)`` with integer ``labels
+    (B,)``; ``class_weights`` for the margin-softmax losses."""
+    labels = torch.as_tensor(labels, device=emb.device)
+    if loss == "nt_xent":
+        return nt_xent_loss(emb, labels, **loss_kwargs)
+    if loss in ("arcface", "cosface"):
+        return margin_softmax_loss(emb, labels, class_weights, kind=loss, **loss_kwargs)
+    d = torch.sum((emb[:, None, :] - emb[None, :, :]) ** 2, dim=-1)
+    same = labels[:, None] == labels[None, :]
+    eye = torch.eye(labels.shape[0], dtype=torch.bool, device=emb.device)
+    hardest_pos = torch.amax(torch.where(same & ~eye, d, torch.zeros_like(d)), dim=1)
+    hardest_neg = torch.amin(torch.where(~same, d, torch.full_like(d, torch.inf)), dim=1)
+    margin = loss_kwargs.get("margin", 0.2)
+    gap = hardest_pos - hardest_neg + margin
+    return torch.mean(torch.maximum(gap, gap.new_tensor(0.0)))
 
 
 def train_step(model: SiameseEmbedder, optimizer: Callable, loss: str = "nt_xent",

@@ -21,7 +21,7 @@ from pyvisim_tpu_torch.ops import gmm as tgmm
 from pyvisim_tpu_torch.ops import kmeans as tkmeans
 from pyvisim_tpu_torch.ops import sift as tsift
 from pyvisim_tpu_torch.ops import vlad as tvlad
-from pyvisim_tpu_torch.ops.codebooks import GmmCodebook
+from pyvisim_tpu_torch.ops.codebooks import GmmCodebook, KMeansCodebook
 from pyvisim_tpu_torch.ops.cuda import aggregate as tagg
 from pyvisim_tpu_torch.ops.cuda import conv as tconv
 from pyvisim_tpu_torch.ops.cuda import gmm_stats as tgs
@@ -1330,3 +1330,120 @@ def test_kernels_1_and_2_match_the_golden_fixtures(cuda_device):
     for name, out in got.items():
         np.testing.assert_allclose(out.cpu().numpy(), g[name].cpu().numpy(), rtol=1e-5,
                                    atol=1e-6, err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# The mesh paths on the card: a world of one rank under NCCL, and one of two
+# ranks sharing cuda:0 under gloo (which NCCL refuses). The ranks import this
+# file for its ``job_*`` functions.
+# ---------------------------------------------------------------------------
+def _card_mesh():
+    from pyvisim_tpu_torch.parallel import make_mesh
+
+    return make_mesh()
+
+
+def _launches():
+    return {"vlad": tagg.vlad_aggregate_batched.launches,
+            "lloyd": tls.lloyd_stats.launches}
+
+
+def job_card_kmeans(x, k, n_iters):
+    from pyvisim_tpu_torch.parallel import distributed_kmeans_fit
+
+    before = _launches()["lloyd"]
+    history = {}
+    cb, _ = distributed_kmeans_fit(torch.from_numpy(x).cuda(), k, _card_mesh(), n_iters=n_iters,
+                                   history=history)
+    return cb.centers.cpu().numpy(), history["lloyd_inertia"][0], _launches()["lloyd"] - before
+
+
+def job_card_encode(desc, mask, centers):
+    from pyvisim_tpu_torch.parallel import sharded_encode
+
+    def core(d, m, model, pca):
+        return tvlad.vlad_encode_batch(d, m, model.centers)
+
+    before = _launches()["vlad"]
+    out = sharded_encode(core, desc, mask, KMeansCodebook(centers=centers), None,
+                         _card_mesh())
+    return out.cpu().numpy(), _launches()["vlad"] - before
+
+
+def job_card_index(gallery, queries, quantize):
+    mesh = _card_mesh()
+    paths = [str(i) for i in range(len(gallery))]
+    index = tindex.RetrievalIndex(torch.from_numpy(gallery).cuda(), paths, quantize=quantize,
+                                  mesh=mesh)
+    return [index.query_vectors(q, 5) for q in (queries[:1], queries)]
+
+
+@pytest.fixture(scope="module", params=[(1, "nccl"), (2, "gloo")], ids=["nccl1", "gloo2"])
+def card_world(request):
+    """A world on the card, its kernels built once here before the ranks
+    start, so that they only load them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from pyvisim_tpu_torch.ops.cuda import _build
+    from pyvisim_tpu_torch.parallel.local import LocalWorld
+
+    _build.build(["aggregate", "gmm_stats"])
+    n, backend = request.param
+    world = LocalWorld(n, backend, "cuda", threads=None, timeout_s=300)
+    yield world
+    world.close()
+
+
+def test_distributed_kmeans_on_card_matches_kmeans_fit(card_world):
+    """The same seeding (k-means++ over all rows, below the 4,096-row
+    subsample) and the same number of Lloyd steps: on one rank the centers
+    and inertias equal kmeans_fit's bit for bit; on two ranks within 1e-4 *
+    max|ref| + 1e-5 and rel 1e-5. Each rank launches kernel 3 once a step."""
+    desc, _, _ = _margin_batch(1, 4000, 64, 16, seed=3)
+    x = desc[0].numpy()
+    out = card_world.run(job_card_kmeans, x, 16, 6)
+    history = {}
+    cb, _ = tkmeans.kmeans_fit(x, 16, max_iters=6, tol=-1.0, history=history)
+    want, want_steps = cb.centers.cpu().numpy(), history["lloyd_inertia"][0]
+    for centers, steps, launches in out:
+        assert launches == 6
+        if card_world.n == 1:
+            np.testing.assert_array_equal(centers, want)
+            assert steps == want_steps
+        else:
+            np.testing.assert_allclose(centers, want, rtol=0,
+                                       atol=1e-4 * np.abs(want).max() + 1e-5)
+            np.testing.assert_allclose(steps, want_steps, rtol=1e-5)
+
+
+def test_sharded_encode_on_card_matches_encode(card_world):
+    """Kernel 1 on each rank's block of 13 sets (padded to divide): on one
+    rank equal to vlad_encode_batch bit for bit, on two within 1e-5."""
+    desc, mask, centers = _margin_batch(13, 196, 130, 32, seed=4)
+    out = card_world.run(job_card_encode, desc.numpy(), mask.numpy(), centers.numpy())
+    want = tvlad.vlad_encode_batch(desc.cuda(), mask.cuda(), centers.cuda()).cpu().numpy()
+    for got, launches in out:
+        assert launches == 1
+        if card_world.n == 1:
+            np.testing.assert_array_equal(got, want)
+        else:
+            np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("quantize", [None, "int8"])
+def test_sharded_index_query_on_card_matches_unsharded(card_world, quantize):
+    """A gallery of 1,000 rows split over the ranks: Q=1 and Q=8 queries
+    give the unsharded index's ids in the same order, and its scores to
+    1e-6."""
+    rng = np.random.default_rng(5)
+    gallery = rng.normal(size=(1000, 256)).astype(np.float32)
+    gallery[700] = gallery[10]  # a tie across the two ranks' blocks
+    queries = np.concatenate([gallery[10:11], rng.normal(size=(7, 256)).astype(np.float32)])
+    index = tindex.RetrievalIndex(torch.from_numpy(gallery).cuda(),
+                                  [str(i) for i in range(1000)], quantize=quantize)
+    want = [index.query_vectors(q, 5) for q in (queries[:1], queries)]
+    for answers in card_world.run(job_card_index, gallery, queries, quantize):
+        for (s, i), (ws, wi) in zip(answers, want):
+            np.testing.assert_array_equal(i, wi)
+            np.testing.assert_allclose(s, ws, rtol=0, atol=1e-6)
+        assert list(answers[0][1][0, :2]) == [10, 700]

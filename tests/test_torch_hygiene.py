@@ -40,7 +40,8 @@ def test_importing_every_module_loads_no_jax_and_no_jax_package():
         assert f"pyvisim_tpu_torch.{sub}" in names
     for mod in ("io._loader", "io._prefetch", "datasets.synthetic", "losses._losses",
                 "models.resnet", "models.siamese", "encoders.siamese", "ops.spectral",
-                "datasets.datasets", "_utils"):
+                "datasets.datasets", "_utils", "parallel.mesh", "parallel.distributed",
+                "parallel.sharded", "parallel.train"):
         assert f"pyvisim_tpu_torch.{mod}" in names
     assert bad == []
 
@@ -243,3 +244,44 @@ def test_clustering_blur_and_dice_default_device_raise_without_cuda(no_cuda):
             make()
     assert spectral_cluster(x, 2, device="cpu").shape == (30,)
     assert _utils.gaussian_blur(img, device="cpu").shape == img.shape
+
+
+def test_parallel_exports_the_jax_packages_names():
+    """``pyvisim_tpu_torch.parallel`` exports the 19 names of JAX's
+    ``parallel/__init__.py`` (read from its source, not imported)."""
+    import ast
+
+    import pyvisim_tpu_torch.parallel as par
+
+    tree = ast.parse((REPO / "pyvisim_tpu" / "parallel" / "__init__.py").read_text())
+    jax_all = next(ast.literal_eval(node.value) for node in tree.body
+                   if isinstance(node, ast.Assign) and node.targets[0].id == "__all__")
+    assert len(jax_all) == 19
+    assert list(par.__all__) == jax_all
+    assert all(callable(getattr(par, name)) for name in jax_all)
+
+
+_MODULE_LEVEL_IMPORT = re.compile(r"^(import|from)\s+(jax|flax|optax|orbax|pyvisim_tpu)(\.|\s|$)",
+                                  re.MULTILINE)
+
+
+@pytest.mark.parametrize("name", ["test_torch_parallel", "test_torch_parallel_train",
+                                  "test_torch_parallel_mesh", "test_torch_cuda"])
+def test_files_that_ranks_import_load_no_jax_at_import(name):
+    """Rank processes import these files for their jobs: JAX only inside
+    their fixtures, never at module level."""
+    text = (REPO / "tests" / f"{name}.py").read_text()
+    assert not _MODULE_LEVEL_IMPORT.findall(text)
+
+
+def test_mesh_entry_points_raise_without_cuda(no_cuda, monkeypatch):
+    from pyvisim_tpu_torch.parallel import init_distributed, make_mesh
+    from pyvisim_tpu_torch.parallel.local import LocalWorld
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LocalWorld(2, "gloo", "cuda")
+    monkeypatch.delenv("LOCAL_RANK", raising=False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_distributed("localhost:1", 2, 0)
