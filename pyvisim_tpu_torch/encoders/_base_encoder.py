@@ -29,6 +29,7 @@ from typing import Any, Callable, Iterable, Optional, Union
 import numpy as np
 import torch
 
+from .. import profiling
 from .._base_classes import FeatureExtractorBase, SimilarityMetric
 from .._config import MODEL_FILES_PATH, get_logger, resolve_device
 from .._errors import WeightsNotFoundError
@@ -248,33 +249,34 @@ class ImageEncoderBase(SimilarityMetric):
         raise_error_when_pca_incompatible: bool = True,
         device=None,
     ):
-        self._feature_extractor = None
-        self._clustering_model = None
-        self._pca = None
-        self._similarity_func = None
-        self._mesh_override = None
-        if device is None:
-            device = getattr(feature_extractor, "device", None)
-        self.device = resolve_device(device)
+        with profiling.span("init"):
+            self._feature_extractor = None
+            self._clustering_model = None
+            self._pca = None
+            self._similarity_func = None
+            self._mesh_override = None
+            if device is None:
+                device = getattr(feature_extractor, "device", None)
+            self.device = resolve_device(device)
 
-        self.similarity_func = similarity_func
-        self.feature_extractor = feature_extractor
+            self.similarity_func = similarity_func
+            self.feature_extractor = feature_extractor
 
-        if weights is not None:
-            if "PCA" in weights.name:
-                self.pca = _CLUSTERING_TO_PCA_MAPPING[weights].load()
-            self.clustering_model = weights.load()
-        else:
-            if pca is not None:
-                self.pca = pca
-            if clustering_model is not None:
-                self.clustering_model = clustering_model
+            if weights is not None:
+                if "PCA" in weights.name:
+                    self.pca = _CLUSTERING_TO_PCA_MAPPING[weights].load()
+                self.clustering_model = weights.load()
+            else:
+                if pca is not None:
+                    self.pca = pca
+                if clustering_model is not None:
+                    self.clustering_model = clustering_model
 
-        self._power_norm_weight = float(power_norm_weight)
-        self._norm_order = float(norm_order)
-        self._epsilon = float(epsilon)
-        self._flatten = bool(flatten)
-        self.raise_error_when_pca_incompatible = raise_error_when_pca_incompatible
+            self._power_norm_weight = float(power_norm_weight)
+            self._norm_order = float(norm_order)
+            self._epsilon = float(epsilon)
+            self._flatten = bool(flatten)
+            self.raise_error_when_pca_incompatible = raise_error_when_pca_incompatible
 
     @property
     def power_norm_weight(self) -> float:
@@ -445,7 +447,8 @@ class ImageEncoderBase(SimilarityMetric):
             raise RuntimeError(
                 "No clustering model set. Pass weights= or clustering_model=."
             )
-        out = self._encode_descriptors(*self._extract(images))
+        with profiling.span("encode", root=True):
+            out = self._encode_descriptors(*self._extract(images))
         if not self._flatten and out.ndim == 3:
             out = out.reshape(-1, out.shape[-1])
         return out
@@ -477,13 +480,13 @@ class ImageEncoderBase(SimilarityMetric):
         if n is not None:
             from ..parallel.sharded import _encode_block
 
-            with torch.inference_mode():
+            with torch.inference_mode(), profiling.span("aggregate"):
                 out = _encode_block(self._encode_core, desc, mask, self._clustering_model,
                                    self._pca, mesh, n)
-            return out.cpu().numpy()
+            return _readback(out)
         desc = torch.as_tensor(desc, device=self.device)
         mask = torch.as_tensor(mask, device=self.device)
-        with torch.inference_mode():
+        with torch.inference_mode(), profiling.span("aggregate"):
             if mesh is None:
                 out = self._encode_core(desc, mask, self._clustering_model, self._pca)
             elif "cluster" in (mesh.mesh_dim_names or ()):
@@ -493,7 +496,7 @@ class ImageEncoderBase(SimilarityMetric):
 
                 out = sharded_encode(self._encode_core, desc, mask, self._clustering_model,
                                      self._pca, mesh)
-        return out.cpu().numpy()
+        return _readback(out)
 
     def _encode_cluster_sharded(self, desc, mask, mesh) -> torch.Tensor:
         """Subclasses dispatch to their cluster-sharded encode."""
@@ -642,6 +645,13 @@ class ImageEncoderBase(SimilarityMetric):
             f"Power Norm Weight={self.power_norm_weight}, \n"
             f"Norm Order={self.norm_order})"
         )
+
+
+def _readback(out: torch.Tensor) -> np.ndarray:
+    """The encodings copied to host numpy, in the ``readback`` span."""
+    with profiling.span("readback"):
+        profiling.count("d2h_bytes", out.numel() * out.element_size())
+        return out.cpu().numpy()
 
 
 def _encode_paths_to_map(

@@ -13,6 +13,7 @@ from typing import Callable, Iterable
 import numpy as np
 import torch
 
+from .. import profiling
 from .._base_classes import SimilarityMetric
 from .._config import get_logger
 from .._utils import cosine_similarity
@@ -63,24 +64,25 @@ class Pipeline(SimilarityMetric):
         if not isinstance(images, (np.ndarray, torch.Tensor)):
             images = list(images)
 
-        # Members on their extractor's mesh share its per-rank blocks, the
-        # others its whole batch.
-        features: dict[tuple, tuple] = {}
-        for enc in self.encoders:
-            key = (id(enc.feature_extractor), enc._encodes_blocks())
-            if key not in features:
-                features[key] = enc._extract(images)
+        with profiling.span("encode", root=True):
+            # Members on their extractor's mesh share its per-rank blocks, the
+            # others its whole batch.
+            features: dict[tuple, tuple] = {}
+            for enc in self.encoders:
+                key = (id(enc.feature_extractor), enc._encodes_blocks())
+                if key not in features:
+                    features[key] = enc._extract(images)
 
-        all_encodings = []
-        for enc in self.encoders:
-            desc, mask, n = features[(id(enc.feature_extractor), enc._encodes_blocks())]
-            saved_flatten = enc.flatten
-            enc.flatten = True
-            try:
-                all_encodings.append(enc._encode_descriptors(desc, mask, n))
-            finally:
-                enc.flatten = saved_flatten
-        return np.hstack(all_encodings)
+            all_encodings = []
+            for enc in self.encoders:
+                desc, mask, n = features[(id(enc.feature_extractor), enc._encodes_blocks())]
+                saved_flatten = enc.flatten
+                enc.flatten = True
+                try:
+                    all_encodings.append(enc._encode_descriptors(desc, mask, n))
+                finally:
+                    enc.flatten = saved_flatten
+            return np.hstack(all_encodings)
 
     def generate_encoding_map(
         self,

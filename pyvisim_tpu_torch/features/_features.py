@@ -24,6 +24,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import profiling
 from .._base_classes import FeatureExtractorBase
 from .._config import get_logger, resolve_device
 from ..models import vgg as vgg_lib
@@ -114,13 +115,14 @@ class SIFT(FeatureExtractorBase):
         super().__init__()
         if backend not in ("torch", "opencv"):
             raise ValueError(f"Unknown SIFT backend: {backend!r}")
-        self.mesh = mesh
-        self.device = _extractor_device(device, mesh)
-        self._output_dim = 128
-        self.backend = backend
-        self.max_keypoints = max_keypoints
-        self.process_size = process_size
-        self._root = False  # RootSIFT flips this
+        with profiling.span("init"):
+            self.mesh = mesh
+            self.device = _extractor_device(device, mesh)
+            self._output_dim = 128
+            self.backend = backend
+            self.max_keypoints = max_keypoints
+            self.process_size = process_size
+            self._root = False  # RootSIFT flips this
 
     @property
     def output_dim(self) -> int:
@@ -158,7 +160,8 @@ class SIFT(FeatureExtractorBase):
     def _grays(self, images) -> list[np.ndarray]:
         if isinstance(images, np.ndarray) and images.ndim == 3:
             images = [images]
-        return [_to_gray_u8(np.asarray(img)) for img in images]
+        with profiling.span("ingest.gray"):
+            return [_to_gray_u8(np.asarray(img)) for img in images]
 
     def extract_batch(self, images):
         """``(desc (B, N, 128), mask (B, N))`` as numpy arrays, in device
@@ -317,49 +320,50 @@ class DeepConvFeature(FeatureExtractorBase):
         mesh=None,
     ):
         super().__init__()
-        self.mesh = mesh
-        self.device = _extractor_device(device, mesh)
-        self.cfg_name = cfg_name
-        self.layer_index = layer_index
-        self.spatial_encoding = spatial_encoding
-        self.image_size = image_size
-        self.transform = transform
-        self.dtype = dtype
-        if module is not None:
-            if params is not None:
-                module.load_state_dict(params)
-            model = module
-        else:
-            model = vgg_lib.VGGConvFeatures(cfg_name, layer_index, int8=int8)
-            if params is None:
-                logger.warning(
-                    "DeepConvFeature: no pretrained params given; using "
-                    "deterministic random initialization (seed 0)."
-                )
+        with profiling.span("init"):
+            self.mesh = mesh
+            self.device = _extractor_device(device, mesh)
+            self.cfg_name = cfg_name
+            self.layer_index = layer_index
+            self.spatial_encoding = spatial_encoding
+            self.image_size = image_size
+            self.transform = transform
+            self.dtype = dtype
+            if module is not None:
+                if params is not None:
+                    module.load_state_dict(params)
+                model = module
             else:
-                model.load_params(params)
-        model = model.eval().to(device=self.device, dtype=dtype)
-        if dtype != torch.float32:
-            model = model.to(memory_format=torch.channels_last)
-        self._model = model
-        # An int8 trunk runs channels-last in every dtype: its kernels read NHWC.
-        self._channels_last = dtype != torch.float32 or any(
-            isinstance(m, QuantConv) for m in model.modules())
-        if module is not None:
-            probe = self._run_trunk(
-                torch.zeros((1, image_size, image_size, 3), dtype=dtype, device=self.device)
-            )
-            if probe.dim() != 4:
-                raise ValueError(
-                    "Custom module must return a (B, C, Hf, Wf) feature map, "
-                    f"got shape {tuple(probe.shape)}."
+                model = vgg_lib.VGGConvFeatures(cfg_name, layer_index, int8=int8)
+                if params is None:
+                    logger.warning(
+                        "DeepConvFeature: no pretrained params given; using "
+                        "deterministic random initialization (seed 0)."
+                    )
+                else:
+                    model.load_params(params)
+            model = model.eval().to(device=self.device, dtype=dtype)
+            if dtype != torch.float32:
+                model = model.to(memory_format=torch.channels_last)
+            self._model = model
+            # An int8 trunk runs channels-last in every dtype: its kernels read NHWC.
+            self._channels_last = dtype != torch.float32 or any(
+                isinstance(m, QuantConv) for m in model.modules())
+            if module is not None:
+                probe = self._run_trunk(
+                    torch.zeros((1, image_size, image_size, 3), dtype=dtype, device=self.device)
                 )
-            self._fmap_hw = (probe.shape[2], probe.shape[3])
-            c = probe.shape[1]
-        else:
-            self._fmap_hw = None
-            c = vgg_lib.conv_out_channels(cfg_name, layer_index)
-        self._output_dim = c + 2 if spatial_encoding else c
+                if probe.dim() != 4:
+                    raise ValueError(
+                        "Custom module must return a (B, C, Hf, Wf) feature map, "
+                        f"got shape {tuple(probe.shape)}."
+                    )
+                self._fmap_hw = (probe.shape[2], probe.shape[3])
+                c = probe.shape[1]
+            else:
+                self._fmap_hw = None
+                c = vgg_lib.conv_out_channels(cfg_name, layer_index)
+            self._output_dim = c + 2 if spatial_encoding else c
 
     def list_conv_layers(self):
         """(index, name, out_channels) for each conv layer."""
@@ -455,16 +459,20 @@ class DeepConvFeature(FeatureExtractorBase):
         (preprocessed); on a mesh, each rank runs its block of the batch
         padded to divide over 'data', and the blocks are gathered."""
         fn = self._forward_features if preprocessed else self._forward
-        if self.mesh is None:
-            return fn(batch)
-        from ..parallel._collectives import all_gather
-        from ..parallel.sharded import _padded_rows
+        with profiling.span("features"):
+            if self.mesh is None:
+                return fn(batch)
+            from ..parallel._collectives import all_gather
+            from ..parallel.sharded import _padded_rows
 
-        (block,), b = _padded_rows(self.mesh, batch)
-        return all_gather(fn(block), self.mesh, "data")[:b]
+            (block,), b = _padded_rows(self.mesh, batch)
+            return all_gather(fn(block), self.mesh, "data")[:b]
 
     def _to_device(self, array) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(array)).to(self.device)
+        with profiling.span("ingest.upload"):
+            host = torch.as_tensor(np.asarray(array))
+            profiling.count("h2d_bytes", host.numel() * host.element_size())
+            return host.to(self.device)
 
     @_check_output_shape
     def __call__(self, image: np.ndarray) -> np.ndarray:

@@ -44,6 +44,7 @@ from typing import Iterable, Sequence
 import numpy as np
 import torch
 
+from . import profiling
 from ._config import full_f32, get_logger, resolve_device
 
 logger = get_logger("index")
@@ -458,18 +459,20 @@ class RetrievalIndex:
 
     def query_vectors(self, query_vecs, k: int = 5):
         """(Q, D) query encodings -> (scores (Q, k), indices (Q, k)) numpy."""
-        q = _as_rows(query_vecs, self.device)
-        q = q[None] if q.ndim == 1 else q
-        scores, idx = self._query(q, min(k, self._n))
-        return scores.cpu().numpy(), idx.cpu().numpy()
+        with profiling.span("search", root=True):
+            q = _as_rows(query_vecs, self.device)
+            q = q[None] if q.ndim == 1 else q
+            scores, idx = self._query(q, min(k, self._n))
+            return scores.cpu().numpy(), idx.cpu().numpy()
 
     def query(self, encoder, images, k: int = 5):
         """Encode query images and search -> list (per query) of
         ``[(path, score), ...]`` descending."""
-        vecs = np.asarray(encoder.encode(images))
-        if vecs.ndim == 1:
-            vecs = vecs[None]
-        scores, idx = self.query_vectors(vecs, k)
+        with profiling.span("query", root=True):
+            vecs = np.asarray(encoder.encode(images))
+            if vecs.ndim == 1:
+                vecs = vecs[None]
+            scores, idx = self.query_vectors(vecs, k)
         return [
             [(self.paths[j], float(s)) for j, s in zip(row_i, row_s)]
             for row_i, row_s in zip(idx, scores)

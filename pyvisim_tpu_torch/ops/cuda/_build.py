@@ -17,6 +17,8 @@ import shutil
 import subprocess
 import time
 
+from ... import profiling
+
 __all__ = ["build", "load_library"]
 
 _PKG = pathlib.Path(__file__).resolve().parents[2]
@@ -87,5 +89,6 @@ def build(names) -> dict[str, dict]:
 @functools.cache
 def load_library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    build([name])
-    return ctypes.CDLL(str(library_path(name)))
+    with profiling.span("load_kernels"):
+        build([name])
+        return ctypes.CDLL(str(library_path(name)))

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import profiling
 from .._config import resolve_device
 from .cuda import sift_window as kernels
 from .gaussian import gaussian_blur_batch
@@ -477,12 +478,19 @@ def sift_descriptors(
     dev = resolve_device(run_on)
     outs = []
     for start in range(0, b, device_batch):
-        chunk = np.stack([_letterbox(np.asarray(g), cfg.process_size)
-                          for g in grays[start : start + device_batch]])
+        with profiling.span("ingest.letterbox"):
+            chunk = np.stack([_letterbox(np.asarray(g), cfg.process_size)
+                              for g in grays[start : start + device_batch]])
         with torch.inference_mode():
-            out = _sift_core(torch.from_numpy(chunk).to(dev), cfg)
-            if root_sift:
-                out["desc"] = _apply_root_sift(out["desc"]) * out["mask"][..., None]
+            with profiling.span("ingest.upload"):
+                profiling.count("h2d_bytes", chunk.nbytes)
+                base = torch.from_numpy(chunk).to(dev)
+            with profiling.span("features"):
+                out = _sift_core(base, cfg)
+                if root_sift:
+                    out["desc"] = _apply_root_sift(out["desc"]) * out["mask"][..., None]
+                profiling.count("sift.keypoints", out["mask"])
+                profiling.count("sift.slots", out["mask"].numel())
         if keys is not None:
             out = {k: v for k, v in out.items() if k in keys or k in ("desc", "mask")}
         outs.append(out if device else {k: v.cpu().numpy() for k, v in out.items()})
