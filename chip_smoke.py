@@ -46,6 +46,10 @@ Phases, each of which raises on a failed check:
       equal, descriptors within 1 unit and exact on >= 99 % of entries;
       each kernel's two calls bit-equal. Kernels A and B are also timed on
       the device alone (profiler), apart from their calls' host time.
+      Then the ingest kernel (raw uint8 images turned gray and letterboxed)
+      bit for bit with its plain version and the host numpy route on a
+      chunk of 16 RGB images at 500x667 and a ragged chunk, timed beside
+      its byte bound, the raw upload and the host route.
    e. The fused conv kernels at the int8 trunk's shapes (VGG16, 224^2,
       bf16, B=128): kernel 7 at conv1 and conv3, kernel 8 pooled at conv6
       and conv9 and unpooled at conv4, 5, 7 and 8, each against its plain
@@ -1312,6 +1316,79 @@ def phase_sift_kernels(kernels):
     return main
 
 
+def phase_ingest(ingest):
+    """The ingest kernel (raw uint8 images turned gray and letterboxed in
+    one launch a chunk) against its plain version and the host numpy
+    route, bit for bit, on a gallery chunk (16 RGB images of 500x667, a
+    slice of one batch array, letterboxed to the default process size) and
+    a ragged one (gray, RGBA, 1x1, an image of the process size); timed on
+    the gallery chunk beside its byte bound: the launch alone (device time,
+    its tables on the card), the wrapper's call (with the copy of its
+    tables), the plain version on the card, the raw chunk's pageable
+    upload and the host route it replaces."""
+    from pyvisim_tpu_torch.ops import sift as sift_ops
+    from pyvisim_tpu_torch.ops.cuda.aggregate import launch_target
+
+    size = sift_ops.SiftConfig().process_size
+    rng = np.random.default_rng(0)
+    loads = {
+        "gallery": rng.integers(0, 256, (2 * SIFT_BATCH, 500, 667, 3), np.uint8)[SIFT_BATCH:],
+        "ragged": [rng.integers(0, 256, shape, np.uint8) for shape in
+                   [(500, 667, 3), (333, 211), (640, 480, 4), (1, 1, 3), (512, 384, 3),
+                    (17, 900), (500, 667, 3)]],
+    }
+    rec = {"name": "ingest_gray_letterbox", "route": "cuda",
+           "source": "pyvisim_tpu_torch/csrc/ingest.cu", "replaces": None,
+           "replaces_function": "none: the host's _to_gray_u8 and _letterbox (numpy)",
+           "library_ms": None}
+    for load, images in loads.items():
+        raw, layout, taps = sift_ops._chunk_layout(images, size)
+        dev_raw = torch.from_numpy(raw).cuda()
+        before = ingest.gray_letterbox.launches
+        got = ingest.gray_letterbox(dev_raw, layout, taps, size)
+        torch.cuda.synchronize()
+        check(ingest.gray_letterbox.launches == before + 1, f"ingest ({load}): not one launch")
+        plain = ingest.gray_letterbox_reference(dev_raw, layout, taps, size)
+        host = np.stack([sift_ops._letterbox(sift_ops._to_gray_u8(im), size) for im in images])
+        check(torch.equal(got, plain), f"ingest ({load}): the kernel differs from its plain version")
+        check(np.array_equal(got.cpu().numpy(), host), f"ingest ({load}): differs from the host")
+        log(f"ingest ({load}): {len(layout)} images, kernel = plain version = host route")
+    raw, layout, taps = sift_ops._chunk_layout(loads["gallery"], size)
+    dev_raw = torch.from_numpy(raw).cuda()
+    meta = torch.from_numpy(np.concatenate([layout.reshape(-1), taps])).cuda()
+    out = torch.empty((len(layout), size, size), dtype=torch.uint8, device="cuda")
+    lib = ingest._library()
+    index, stream = launch_target(dev_raw.device)
+
+    def launch():
+        return lib.ingest_gray_letterbox(dev_raw.data_ptr(), meta.data_ptr(), len(layout), size,
+                                         out.data_ptr(), index, stream)
+
+    check(launch() == 0, "ingest launch failed")
+    kernel_ms = profile_device_graph(launch, reps=20, top=1)["kernel_ms_per_call"]
+    call_ms = cuda_ms(lambda: ingest.gray_letterbox(dev_raw, layout, taps, size))
+    plain_ms = cuda_ms(lambda: ingest.gray_letterbox_reference(dev_raw, layout, taps, size),
+                       reps=2, rounds=3)
+    upload_ms = cuda_ms(lambda: torch.from_numpy(raw).cuda(), reps=3, rounds=5)
+    host = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        [sift_ops._letterbox(sift_ops._to_gray_u8(im), size) for im in loads["gallery"]]
+        host.append((time.perf_counter() - t0) * 1e3)
+    # Each raw byte read once, each output byte written once (the tables
+    # are 0.03 MB).
+    b = bound(0, raw.nbytes + out.numel())
+    rec.update({"launches": None, "max_abs_err": 0.0, "ms": call_ms, "device_ms": kernel_ms,
+                "plain_ms": plain_ms, "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+                "raw_upload_ms": upload_ms, "host_route_ms": statistics.median(host),
+                "launches_per_16_image_call": 1,
+                "shape": f"{len(layout)} x 500 x 667 x 3 uint8 -> {len(layout)} x {size}^2"})
+    log(f"ingest: kernel {kernel_ms:.4f} ms device, call {call_ms:.4f} ms, plain {plain_ms:.4f} "
+        f"ms, bound {b['bound_ms']:.4f} ms ({b}); raw upload {upload_ms:.4f} ms; host route "
+        f"{rec['host_route_ms']:.2f} ms per 16 images")
+    return rec
+
+
 def time_calls(fn, calls, **kw) -> float:
     """CUDA-event ms of ``fn`` over all ``calls`` (one device call's worth)."""
     return cuda_ms(lambda: [fn(*a, **k) for a, k in calls], **kw)
@@ -1567,9 +1644,12 @@ def phase_slice3(kernels, agg, gs):
     fv = FisherVectorEncoder(ext, weights=GMMWeights.OXFORD102_K256_ROOTSIFT_PCA)
     pipe = Pipeline([vlad, fv])
     pipe.encode(listed[:SIFT_BATCH])  # warm up
+    from pyvisim_tpu_torch.ops.cuda import ingest
+
     wrappers = (kernels.refine, kernels.orientation, kernels.descriptor,
-                agg.vlad_aggregate_batched, gs.gmm_stats_batched)
-    names = ("sift_refine", "sift_orientation", "sift_descriptor", "vlad", "gmm_stats")
+                agg.vlad_aggregate_batched, gs.gmm_stats_batched, ingest.gray_letterbox)
+    names = ("sift_refine", "sift_orientation", "sift_descriptor", "vlad", "gmm_stats",
+             "ingest_gray_letterbox")
     n_calls = -(-SIFT_IMAGES // SIFT_BATCH)
 
     def counts():
@@ -1593,7 +1673,7 @@ def phase_slice3(kernels, agg, gs):
     log(f"slice 3: VLAD encode of {SIFT_IMAGES} images {vlad_s * 1e3:.1f} ms, launches "
         f"{per_vlad}; Pipeline encode {pipe_s * 1e3:.1f} ms, launches {per_pipe}")
     sift_expected = {"sift_refine": n_calls, "sift_orientation": n_calls,
-                     "sift_descriptor": n_calls}
+                     "sift_descriptor": n_calls, "ingest_gray_letterbox": n_calls}
     check(per_vlad == dict(sift_expected, vlad=1, gmm_stats=0), f"VLAD encode ran {per_vlad}")
     check(per_pipe == dict(sift_expected, vlad=1, gmm_stats=1), f"Pipeline encode ran {per_pipe}")
 
@@ -4083,6 +4163,7 @@ def run(flowers_root: pathlib.Path) -> int:
     from pyvisim_tpu_torch.ops.cuda import aggregate as agg
     from pyvisim_tpu_torch.ops.cuda import conv
     from pyvisim_tpu_torch.ops.cuda import gmm_stats as gs
+    from pyvisim_tpu_torch.ops.cuda import ingest
     from pyvisim_tpu_torch.ops.cuda import lloyd_stats as ls
     from pyvisim_tpu_torch.ops.cuda import sift_window as sw
 
@@ -4098,6 +4179,7 @@ def run(flowers_root: pathlib.Path) -> int:
     del vlad_rootsift_call, gmm_rootsift_call
     lloyd_kernel = phase_lloyd_kernel(ls)
     sift_kernels = phase_sift_kernels(sw)
+    ingest_kernel = phase_ingest(ingest)
     conv_kernels = phase_conv_kernels(conv)
     launches, encode_launches, centers, ext, images = phase_slice(agg)
     kernel["launches"] = launches
@@ -4117,6 +4199,9 @@ def run(flowers_root: pathlib.Path) -> int:
         rec["launches"] = launches3[rec["name"]]
         rec["launches_per_vlad_encode_of_64"] = numbers3["launches_per_vlad_encode_of_64"][rec["name"]]
     kernel["launches_slice3"] = launches3["vlad"]
+    ingest_kernel["launches"] = launches3["ingest_gray_letterbox"]
+    ingest_kernel["launches_per_vlad_encode_of_64"] = (
+        numbers3["launches_per_vlad_encode_of_64"]["ingest_gray_letterbox"])
     gmm_kernel["launches_slice3"] = launches3["gmm_stats"]
     launches4, numbers4, enc8 = phase_slice4(conv, agg, ext, centers, images)
     k7, k8 = conv_kernels
@@ -4157,7 +4242,8 @@ def run(flowers_root: pathlib.Path) -> int:
     for rec in (kernel, gmm_kernel, lloyd_kernel, *sift_kernels, k7, k8):
         rec["launches_parallel"] = launches12[rec["name"]]
     log(f"total {time.perf_counter() - t0:.1f} s")
-    print(json.dumps({"kernels": [kernel, gmm_kernel, lloyd_kernel, *sift_kernels, k7, k8]}))
+    print(json.dumps({"kernels": [kernel, gmm_kernel, lloyd_kernel, *sift_kernels, k7, k8,
+                                  ingest_kernel]}))
     print(json.dumps({
         "ok": True,
         "device": {

@@ -66,12 +66,7 @@ def _check_output_shape(func) -> Callable:
     return wrapper
 
 
-def _to_gray_u8(image: np.ndarray) -> np.ndarray:
-    """RGB/gray -> uint8 grayscale, matching OpenCV's RGB2GRAY weights."""
-    if image.ndim == 3:
-        g = image[..., 0] * 0.299 + image[..., 1] * 0.587 + image[..., 2] * 0.114
-        return np.round(g).astype(np.uint8)
-    return image.astype(np.uint8)
+_to_gray_u8 = sift_ops._to_gray_u8
 
 
 def _deep_device_batch() -> int:
@@ -163,10 +158,28 @@ class SIFT(FeatureExtractorBase):
         with profiling.span("ingest.gray"):
             return [_to_gray_u8(np.asarray(img)) for img in images]
 
+    def _raw(self, images):
+        """The images as ``ops.sift`` takes them: a batch whose images are
+        all uint8 as it is (a batch array stays one array), to be turned
+        gray and letterboxed on the device; any other batch turned into
+        uint8 grays here (``_grays``), as the extractor always did."""
+        if isinstance(images, np.ndarray) and images.ndim == 3:
+            images = [images]
+        if not (isinstance(images, np.ndarray) and images.dtype == np.uint8):
+            images = [np.asarray(img) for img in images]
+            if not all(img.dtype == np.uint8 for img in images):
+                return self._grays(images)
+        return images
+
     def extract_batch(self, images):
         """``(desc (B, N, 128), mask (B, N))`` as numpy arrays, in device
         calls of ``PYVISIM_SIFT_DEVICE_BATCH`` (default 16) images (the
-        opencv backend: image by image, padded to the most descriptors)."""
+        opencv backend: image by image, padded to the most descriptors).
+
+        uint8 images (gray, RGB or RGBA) go to the device raw and are
+        turned gray and letterboxed there (``ops/sift.py:sift_descriptors``);
+        a batch holding any other dtype is turned gray on the host first.
+        On a mesh every image is turned gray on the host."""
         if self.backend == "opencv":
             return super().extract_batch(images)
         if self.mesh is not None:
@@ -175,7 +188,7 @@ class SIFT(FeatureExtractorBase):
             return sharded_sift_batch(self._grays(images), self.mesh, cfg=self._sift_cfg,
                                       root_sift=self._root)
         return sift_ops.sift_batch(
-            self._grays(images), max_keypoints=self.max_keypoints, root_sift=self._root,
+            self._raw(images), max_keypoints=self.max_keypoints, root_sift=self._root,
             cfg=self._sift_cfg, run_on=self.device,
         )
 
@@ -203,9 +216,11 @@ class SIFT(FeatureExtractorBase):
     def extract_batch_device(self, images):
         """As ``extract_batch``, but the results stay on the device as
         tensors (f32, root-SIFT applied there), so an encoder that follows
-        on the device needs no copies. More than 16 device calls' worth of
-        images take ``extract_batch``, so a gallery pins no device memory;
-        the opencv backend and a mesh always do."""
+        on the device needs no copies. uint8 images are uploaded raw and
+        turned gray and letterboxed on the device, as in ``extract_batch``.
+        More than 16 device calls' worth of images take ``extract_batch``,
+        so a gallery pins no device memory; the opencv backend and a mesh
+        always do."""
         if self.backend == "opencv" or self.mesh is not None:
             return self.extract_batch(images)
         if not isinstance(images, np.ndarray):
@@ -214,7 +229,7 @@ class SIFT(FeatureExtractorBase):
         if len(images) > cap:
             return self.extract_batch(images)
         return sift_ops.sift_batch(
-            self._grays(images), max_keypoints=self.max_keypoints, root_sift=self._root,
+            self._raw(images), max_keypoints=self.max_keypoints, root_sift=self._root,
             cfg=self._sift_cfg, device=True, run_on=self.device,
         )
 

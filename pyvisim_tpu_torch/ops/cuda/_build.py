@@ -28,9 +28,10 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
-# Flags of single sources. The SIFT kernels repeat their plain versions'
-# float arithmetic operation for operation, so no multiply-add is fused.
-SOURCE_FLAGS = {"sift_window": ("--fmad=false",)}
+# Flags of single sources. The SIFT kernels and the ingest kernel repeat
+# their plain versions' float arithmetic operation for operation, so no
+# multiply-add is fused.
+SOURCE_FLAGS = {"sift_window": ("--fmad=false",), "ingest": ("--fmad=false",)}
 
 
 def _nvcc() -> str:

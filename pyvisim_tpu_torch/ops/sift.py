@@ -13,13 +13,16 @@ validity mask.
 The three per-candidate stages run in the hand-written CUDA kernels of
 ``ops/cuda/sift_window.py`` (refinement, orientation, descriptor); the
 pyramid, detection, ranking and the gradient atlas are plain PyTorch, as
-they are XLA work in the JAX package. The JAX package's TPU layouts (the
+they are XLA work in the JAX package. Raw uint8 images are turned gray and
+letterboxed on the device by the kernel of ``ops/cuda/ingest.py``, where
+the JAX package does both on the host. The JAX package's TPU layouts (the
 row-folded DoG and atlas, lane alignment, chunked vmaps with skips, the
 uint8 host wire) have no counterpart here.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import os
 from typing import Callable
@@ -30,6 +33,7 @@ import torch.nn.functional as F
 
 from .. import profiling
 from .._config import resolve_device
+from .cuda import ingest
 from .cuda import sift_window as kernels
 from .gaussian import gaussian_blur_batch
 
@@ -381,6 +385,14 @@ def _apply_root_sift(desc: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(desc / (desc.sum(dim=-1, keepdim=True) + 1e-7))
 
 
+def _to_gray_u8(image: np.ndarray) -> np.ndarray:
+    """RGB/gray -> uint8 grayscale, matching OpenCV's RGB2GRAY weights."""
+    if image.ndim == 3:
+        g = image[..., 0] * 0.299 + image[..., 1] * 0.587 + image[..., 2] * 0.114
+        return np.round(g).astype(np.uint8)
+    return image.astype(np.uint8)
+
+
 def _linear_taps(src: int, dst: int, dtype=np.float32):
     """OpenCV's INTER_LINEAR source index (unclamped) and weight of each
     output position along one axis, the weight in ``dtype``."""
@@ -397,33 +409,42 @@ def _edge_taps(src: int, dst: int, dtype):
     return s, np.minimum(s + 1, src - 1), f
 
 
+def _u8_taps(h: int, w: int, nh: int, nw: int):
+    """The taps of OpenCV's fixed-point INTER_LINEAR from (h, w) to (nh,
+    nw): the source columns ``sx``, ``sx1`` and their 11-bit weights
+    ``ax0``, ``ax1``; the source rows ``sy0``, ``sy1`` and theirs ``by0``,
+    ``by1`` (int32 weights). Rows past an edge are clamped but keep their
+    weight, as OpenCV's generic path does."""
+    sx, sx1, fx = _edge_taps(w, nw, np.float32)
+    sy, fy = _linear_taps(h, nh)
+    sy0, sy1 = np.clip(sy, 0, h - 1), np.clip(sy + 1, 0, h - 1)
+    one, coef = np.float32(1.0), np.float32(2048)
+    ax0 = np.rint((one - fx) * coef).astype(np.int32)
+    ax1 = np.rint(fx * coef).astype(np.int32)
+    by0 = np.rint((one - fy) * coef).astype(np.int32)
+    by1 = np.rint(fy * coef).astype(np.int32)
+    return sx, sx1, ax0, ax1, sy0, sy1, by0, by1
+
+
 def _resize_linear(img: np.ndarray, nh: int, nw: int) -> np.ndarray:
     """``cv2.resize(img, (nw, nh), interpolation=cv2.INTER_LINEAR)`` for a
     2-D uint8 or float32 image, without OpenCV.
 
-    uint8 follows OpenCV's fixed-point path: f32 positions, 11-bit
-    weights, int32 horizontal sums, and the vertical blend of its SIMD
-    loop, ``((S0 >> 4) * b0 >> 16) + ((S1 >> 4) * b1 >> 16)`` rounded by
-    ``(+2) >> 2``; rows past an edge are clamped but keep their weight, as
-    OpenCV's generic path does. float32 blends in float64 with both axes'
-    edge weights zeroed and rounds once, which is what OpenCV's build with
-    Intel IPP returns to within 3e-5 at 0..255 scale.
+    uint8 follows OpenCV's fixed-point path (``_u8_taps``): f32
+    positions, 11-bit weights, int32 horizontal sums, and the vertical
+    blend of its SIMD loop, ``((S0 >> 4) * b0 >> 16) + ((S1 >> 4) * b1 >>
+    16)`` rounded by ``(+2) >> 2``. float32 blends in float64 with both
+    axes' edge weights zeroed and rounds once, which is what OpenCV's build
+    with Intel IPP returns to within 3e-5 at 0..255 scale.
     """
     h, w = img.shape
     if (h, w) == (nh, nw):
         return img.copy()
     if img.dtype == np.uint8:
-        sx, sx1, fx = _edge_taps(w, nw, np.float32)
-        sy, fy = _linear_taps(h, nh)
-        sy0, sy1 = np.clip(sy, 0, h - 1), np.clip(sy + 1, 0, h - 1)
-        one, coef = np.float32(1.0), np.float32(2048)
-        ax0 = np.rint((one - fx) * coef).astype(np.int32)
-        ax1 = np.rint(fx * coef).astype(np.int32)
-        by0 = np.rint((one - fy) * coef).astype(np.int32)[:, None]
-        by1 = np.rint(fy * coef).astype(np.int32)[:, None]
+        sx, sx1, ax0, ax1, sy0, sy1, by0, by1 = _u8_taps(h, w, nh, nw)
         src = img.astype(np.int32)
         rows = src[:, sx] * ax0 + src[:, sx1] * ax1
-        out = (((rows[sy0] >> 4) * by0) >> 16) + (((rows[sy1] >> 4) * by1) >> 16)
+        out = (((rows[sy0] >> 4) * by0[:, None]) >> 16) + (((rows[sy1] >> 4) * by1[:, None]) >> 16)
         return np.clip((out + 2) >> 2, 0, 255).astype(np.uint8)
     sx, sx1, fx = _edge_taps(w, nw, np.float64)
     sy, sy1, fy = _edge_taps(h, nh, np.float64)
@@ -432,13 +453,17 @@ def _resize_linear(img: np.ndarray, nh: int, nw: int) -> np.ndarray:
     return (rows[sy] * (1.0 - fy)[:, None] + rows[sy1] * fy[:, None]).astype(np.float32)
 
 
+def _letterbox_shape(h: int, w: int, size: int) -> tuple[int, int]:
+    """The size of an (h, w) image with its longest side scaled to ``size``."""
+    s = size / max(h, w)
+    return max(1, round(h * s)), max(1, round(w * s))
+
+
 def _letterbox(gray: np.ndarray, size: int) -> np.ndarray:
     """Host-side: scale the longest side to ``size`` (INTER_LINEAR) and
     zero-pad to a square. uint8 stays uint8, so one byte per pixel crosses
     to the device; anything else becomes float32."""
-    h, w = gray.shape
-    s = size / max(h, w)
-    nh, nw = max(1, round(h * s)), max(1, round(w * s))
+    nh, nw = _letterbox_shape(*gray.shape, size)
     if gray.dtype != np.uint8:
         gray = gray.astype(np.float32)
     out = np.zeros((size, size), gray.dtype)
@@ -446,29 +471,121 @@ def _letterbox(gray: np.ndarray, size: int) -> np.ndarray:
     return out
 
 
+@functools.lru_cache(maxsize=64)
+def _letterbox_taps(h: int, w: int, size: int) -> np.ndarray:
+    """The device route's taps of an (h, w) image letterboxed to ``size``:
+    ``_u8_taps`` to its letterboxed size as one read-only int64 array, the
+    four x tables (``nw`` each) then the four y tables (``nh`` each). An
+    image that keeps its size gets taps that copy it (one weight 2048)."""
+    taps = np.concatenate(_u8_taps(h, w, *_letterbox_shape(h, w, size))).astype(np.int64)
+    taps.flags.writeable = False
+    return taps
+
+
+def _chunk_layout(images, size: int):
+    """The raw bytes of one chunk of uint8 images and the tables of
+    ``ops/cuda/ingest.py``: ``(raw, layout, taps)``. A contiguous uint8
+    batch array is its own raw buffer; a list is packed into one. Each
+    distinct image shape has its taps once."""
+    if isinstance(images, np.ndarray):
+        raw = np.ascontiguousarray(images)
+        shapes = [images.shape[1:]] * len(images)
+    else:
+        arrays = [np.asarray(im) for im in images]
+        shapes = [im.shape for im in arrays]
+        raw = np.concatenate([im.reshape(-1) for im in arrays])
+    layout = np.empty((len(shapes), len(ingest.COLUMNS)), np.int64)
+    tap_parts, starts, offset, n_taps = [], {}, 0, 0
+    for i, shape in enumerate(shapes):
+        if len(shape) not in (2, 3):
+            raise ValueError(f"images must be 2-D gray or 3-D colour, got shape {shape}")
+        h, w = shape[:2]
+        c = shape[2] if len(shape) == 3 else 1
+        nh, nw = _letterbox_shape(h, w, size)
+        if (h, w) not in starts:
+            starts[h, w] = n_taps
+            tap_parts.append(_letterbox_taps(h, w, size))
+            n_taps += len(tap_parts[-1])
+        start = starts[h, w]
+        layout[i] = (offset, h, w, c, nh, nw, start, start + 4 * nw)
+        offset += h * w * c
+    return raw, layout, np.concatenate(tap_parts)
+
+
+def _ingest_on_device(images, size: int, dev) -> torch.Tensor:
+    """One chunk of uint8 images (2-D gray or 3-D RGB(A)) uploaded as they
+    are and turned gray and letterboxed by one launch of the ingest kernel
+    (its plain version on the CPU): the ``(B, size, size)`` uint8 base. The
+    raw upload is freed on return, before the SIFT core allocates."""
+    with profiling.span("ingest.upload"):
+        raw, layout, taps = _chunk_layout(images, size)
+        profiling.count("h2d_bytes", raw.nbytes)
+        raw = torch.from_numpy(raw).to(dev)
+    with profiling.span("ingest.letterbox"):
+        base = ingest.gray_letterbox(raw, layout, taps, size)
+    profiling.count("ingest.on_card", len(layout))
+    return base
+
+
+def _ingest_on_host(images, size: int, dev) -> torch.Tensor:
+    """One chunk of other images turned gray (colour ones, by
+    ``_to_gray_u8``) and letterboxed on the host, then uploaded: the
+    ``(B, size, size)`` base, uint8 or float32."""
+    arrays = [np.asarray(im) for im in images]
+    if any(im.ndim == 3 for im in arrays):
+        with profiling.span("ingest.gray"):
+            arrays = [_to_gray_u8(im) if im.ndim == 3 else im for im in arrays]
+    with profiling.span("ingest.letterbox"):
+        chunk = np.stack([_letterbox(im, size) for im in arrays])
+    with profiling.span("ingest.upload"):
+        profiling.count("h2d_bytes", chunk.nbytes)
+        base = torch.from_numpy(chunk).to(dev)
+    profiling.count("ingest.on_host", len(chunk))
+    return base
+
+
+def _all_uint8(images) -> bool:
+    if isinstance(images, np.ndarray):
+        return images.dtype == np.uint8
+    return all(np.asarray(im).dtype == np.uint8 for im in images)
+
+
 def sift_descriptors(
-    grays: np.ndarray | list[np.ndarray],
+    images: np.ndarray | list[np.ndarray],
     cfg: SiftConfig | None = None,
     root_sift: bool = False,
     keys: tuple[str, ...] | None = None,
     device: bool = False,
     run_on=None,
 ) -> dict:
-    """Result dict for a batch of grayscale images (uint8/float 0..255 HxW,
-    any sizes, letterboxed on the host): desc (B, N, 128), mask (B, N), x,
-    y, size, theta, response in processing coordinates. ``keys`` keeps
-    only those planes (desc and mask always).
+    """Result dict for a batch of images of any sizes: desc (B, N, 128),
+    mask (B, N), x, y, size, theta, response in processing coordinates.
+    ``keys`` keeps only those planes (desc and mask always).
+
+    ``images`` is a list of images, each 2-D gray (uint8 or float 0..255)
+    or 3-D colour (RGB, or RGBA whose alpha is ignored), or one array of
+    them: a 2-D array is one image, a 3-D one a batch of gray images, a
+    4-D one a batch of colour images.
 
     Images run in device calls of ``PYVISIM_SIFT_DEVICE_BATCH`` (default
-    16). ``device=False`` returns numpy arrays, each call's results copied
-    to the host; ``device=True`` keeps them on the device as tensors, for
-    at most 16 device calls' worth of images. ``run_on`` is the torch
-    device (None means CUDA).
+    16). A call whose images are all uint8 uploads them raw (a contiguous
+    batch array as it lies, a list packed into one buffer) and turns them
+    gray and letterboxes them on the device in one kernel launch
+    (``ops/cuda/ingest.py``; its plain version on the CPU), bit for bit
+    as the host would. Any other call takes the host route: colour images
+    gray by ``_to_gray_u8``, then ``_letterbox`` (float grays stay float),
+    then the upload. The counters ``ingest.on_card`` and
+    ``ingest.on_host`` count the images of each route.
+
+    ``device=False`` returns numpy arrays, each call's results copied to
+    the host; ``device=True`` keeps them on the device as tensors, for at
+    most 16 device calls' worth of images. ``run_on`` is the torch device
+    (None means CUDA).
     """
     cfg = cfg or SiftConfig()
-    if isinstance(grays, np.ndarray) and grays.ndim == 2:
-        grays = [grays]
-    b = len(grays)
+    if isinstance(images, np.ndarray) and images.ndim == 2:
+        images = [images]
+    b = len(images)
     device_batch = int(os.environ.get("PYVISIM_SIFT_DEVICE_BATCH", "16"))
     if device and b > 16 * device_batch:
         raise ValueError(
@@ -478,13 +595,10 @@ def sift_descriptors(
     dev = resolve_device(run_on)
     outs = []
     for start in range(0, b, device_batch):
-        with profiling.span("ingest.letterbox"):
-            chunk = np.stack([_letterbox(np.asarray(g), cfg.process_size)
-                              for g in grays[start : start + device_batch]])
+        part = images[start : start + device_batch]
         with torch.inference_mode():
-            with profiling.span("ingest.upload"):
-                profiling.count("h2d_bytes", chunk.nbytes)
-                base = torch.from_numpy(chunk).to(dev)
+            ingest_chunk = _ingest_on_device if _all_uint8(part) else _ingest_on_host
+            base = ingest_chunk(part, cfg.process_size, dev)
             with profiling.span("features"):
                 out = _sift_core(base, cfg)
                 if root_sift:
@@ -514,22 +628,24 @@ def sift_single(
 
 
 def sift_batch(
-    grays: list[np.ndarray],
+    images: np.ndarray | list[np.ndarray],
     max_keypoints: int = 2048,
     root_sift: bool = False,
     cfg: SiftConfig | None = None,
     device: bool = False,
     run_on=None,
 ):
-    """List of (H, W) uint8 grayscale -> (desc (B, N, 128), mask (B, N)).
+    """Images -> (desc (B, N, 128), mask (B, N)).
 
-    ``device=True`` returns tensors that stay on the device (f32
-    descriptors, root-SIFT applied there), for encoders that encode on the
-    device right away; else numpy arrays.
+    ``images`` as ``sift_descriptors`` takes them: raw uint8 images (2-D
+    gray or 3-D RGB(A)) are turned gray and letterboxed on the device, any
+    other on the host. ``device=True`` returns tensors that stay on the
+    device (f32 descriptors, root-SIFT applied there), for encoders that
+    encode on the device right away; else numpy arrays.
     """
     cfg = cfg or SiftConfig(max_keypoints=max_keypoints)
     if cfg.max_keypoints != max_keypoints:
         cfg = dataclasses.replace(cfg, max_keypoints=max_keypoints)
-    out = sift_descriptors(grays, cfg, root_sift=root_sift, keys=("desc", "mask"),
+    out = sift_descriptors(images, cfg, root_sift=root_sift, keys=("desc", "mask"),
                            device=device, run_on=run_on)
     return out["desc"], out["mask"]

@@ -17,13 +17,19 @@ kernels' clock, and the counters add up.
 Spans (the batch or query id is drawn by the outermost ``encode``,
 ``query`` or ``search`` span of a thread; the others carry their
 parent's): ``encode``; ``ingest.gray``, ``ingest.letterbox`` and
-``ingest.upload``, the host's work on the images and their copy to the
-device; ``features``, the extractor's device work; ``aggregate``, the
-encode core; ``readback``, the encodings' copy to the host; ``query``
-and ``search`` of ``RetrievalIndex``; and, outside any batch, ``init`` of
-the extractors and encoders and ``load_kernels`` of each CUDA library.
-Counters: ``h2d_bytes``, ``d2h_bytes``, ``sift.keypoints`` (valid
-keypoints) and ``sift.slots`` (keypoint slots).
+``ingest.upload``, the images turned gray, letterboxed and copied to the
+device (SIFT's uint8 images are copied raw and turned gray and
+letterboxed by one kernel launch inside ``ingest.letterbox``, with no
+``ingest.gray``); ``features``, the extractor's device work;
+``aggregate``, the encode core; ``readback``, the encodings' copy to the
+host; ``query`` and ``search`` of ``RetrievalIndex``; and, outside any
+batch, ``init`` of the extractors and encoders and ``load_kernels`` of
+each CUDA library. Counters: ``h2d_bytes`` (the bytes of the images as
+they were copied up: raw pixels where the device turns them gray,
+letterboxed ones where the host did), ``d2h_bytes``, ``sift.keypoints``
+(valid keypoints), ``sift.slots`` (keypoint slots), and
+``ingest.on_card`` and ``ingest.on_host``, the SIFT images turned gray
+and letterboxed on the device and on the host.
 """
 from __future__ import annotations
 

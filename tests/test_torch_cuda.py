@@ -25,6 +25,7 @@ from pyvisim_tpu_torch.ops.codebooks import GmmCodebook, KMeansCodebook
 from pyvisim_tpu_torch.ops.cuda import aggregate as tagg
 from pyvisim_tpu_torch.ops.cuda import conv as tconv
 from pyvisim_tpu_torch.ops.cuda import gmm_stats as tgs
+from pyvisim_tpu_torch.ops.cuda import ingest as tingest
 from pyvisim_tpu_torch.ops.cuda import lloyd_stats as tls
 from pyvisim_tpu_torch.ops.cuda import sift_window as tsw
 
@@ -708,6 +709,80 @@ def test_window_kernels_all_invalid_and_refusals(cuda_device, atlases):
         tsw.refine([dog, dog.cpu()], *cand, ok, counts=[1, 1], **REFINE_KW)
     with pytest.raises(ValueError):
         tsw.refine([dog] * 17, *cand, ok, counts=[2] + [0] * 16, **REFINE_KW)
+
+
+# ---- the ingest kernel: raw uint8 images turned gray and letterboxed ----
+
+
+def _ingest_chunk(case):
+    """One chunk of raw uint8 images of a named case, and its size."""
+    rng = np.random.default_rng(11)
+
+    def img(*shape):
+        return rng.integers(0, 256, shape, dtype=np.uint8)
+
+    if case == "gallery":  # the benchmark's chunk, a slice of its batch array
+        return img(64, 500, 667, 3)[16:32], 512
+    if case == "ragged":
+        return [img(500, 667, 3), img(333, 211), img(640, 480, 4), img(1, 1, 3),
+                img(500, 667, 3), img(17, 900), img(512, 300, 3)], 512
+    if case == "one_pixel":
+        return [img(1, 1, 3)], 512
+    if case == "exact_size":  # no resize: copied (as gray)
+        return [img(512, 384, 3), img(512, 512)], 512
+    return img(4, 123, 77), 96  # a batch array of 2-D grays
+
+
+@pytest.mark.parametrize("case", ["gallery", "ragged", "one_pixel", "exact_size", "gray"])
+def test_ingest_kernel_matches_plain_version(cuda_device, case):
+    """Bit for bit, one launch a chunk."""
+    images, size = _ingest_chunk(case)
+    raw, layout, taps = tsift._chunk_layout(images, size)
+    before = tingest.gray_letterbox.launches
+    got = tingest.gray_letterbox(torch.from_numpy(raw).to(cuda_device), layout, taps, size)
+    torch.cuda.synchronize()
+    assert tingest.gray_letterbox.launches == before + 1
+    want = tingest.gray_letterbox_reference(torch.from_numpy(raw), layout, taps, size)
+    assert got.dtype == torch.uint8 and torch.equal(got.cpu(), want)
+    host = [tsift._letterbox(tsift._to_gray_u8(im), size) for im in images]
+    np.testing.assert_array_equal(got.cpu().numpy(), np.stack(host))
+
+
+def test_ingest_kernel_launches_once_a_chunk_of_sift_descriptors(cuda_device):
+    """20 raw RGB images through ``sift_descriptors``: two chunks of at
+    most 16, one launch each, and the host route's descriptors."""
+    images = (np.stack([_blobs(1, size=80, seed=s)[0].numpy() for s in range(20)])[..., None]
+              * np.array([0.9, 1.0, 0.7])).astype(np.uint8)
+    before = tingest.gray_letterbox.launches
+    got = tsift.sift_descriptors(images, SIFT_CFG, run_on=cuda_device)
+    assert tingest.gray_letterbox.launches == before + 2
+    grays = [tsift._letterbox(tsift._to_gray_u8(im), SIFT_CFG.process_size) for im in images]
+    want = tsift.sift_descriptors([g.astype(np.float32) for g in grays], SIFT_CFG,
+                                  run_on=cuda_device)
+    assert tingest.gray_letterbox.launches == before + 2
+    for key in ("desc", "mask"):
+        np.testing.assert_array_equal(got[key], want[key])
+
+
+def test_ingest_kernel_refuses_what_it_does_not_take(cuda_device):
+    images, size = _ingest_chunk("ragged")
+    raw, layout, taps = tsift._chunk_layout(images, size)
+    dev_raw = torch.from_numpy(raw).to(cuda_device)
+    with pytest.raises(TypeError):
+        tingest.gray_letterbox(dev_raw.float(), layout, taps, size)
+    with pytest.raises(ValueError):
+        tingest.gray_letterbox(dev_raw[::2], layout, taps, size)
+    two = layout.copy()
+    two[1, 3] = 2
+    with pytest.raises(ValueError):
+        tingest.gray_letterbox(dev_raw, two, taps, size)
+    raw2, layout2, taps2 = tsift._chunk_layout([np.zeros((5, 7, 2), np.uint8)], size)
+    with pytest.raises(ValueError):
+        tingest.gray_letterbox(torch.from_numpy(raw2).to(cuda_device), layout2, taps2, size)
+    with pytest.raises(ValueError):
+        tingest.gray_letterbox(dev_raw, layout, taps, 256)  # letterboxed sizes above 256
+    with pytest.raises(TypeError):
+        tingest.gray_letterbox(dev_raw, torch.from_numpy(layout), taps, size)
 
 
 # ---- kernels 7 and 8: fused 3x3 conv + ReLU (+ 2x2 pool), float and int8 ----

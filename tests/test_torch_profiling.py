@@ -19,7 +19,8 @@ from pyvisim_tpu_torch.ops.codebooks import KMeansCodebook
 from pyvisim_tpu_torch.ops.cuda import _build
 
 # The spans of one encode, each with its parent's name (None: the root).
-SIFT_TREE = {"encode": None, "ingest.gray": "encode", "ingest.letterbox": "encode",
+# SIFT's uint8 images are turned gray inside the letterbox kernel's launch.
+SIFT_TREE = {"encode": None, "ingest.letterbox": "encode",
              "ingest.upload": "encode", "features": "encode", "aggregate": "encode",
              "readback": "encode"}
 DEEP_TREE = {"encode": None, "ingest.upload": "encode", "features": "encode",
@@ -139,9 +140,11 @@ def test_byte_counters_equal_the_tensors_nbytes(request, which):
         out = encoder.encode(images)
     c = rec.counters()
     assert c["d2h_bytes"] == out.nbytes
-    # SIFT uploads its letterboxed gray images, one byte a pixel; the
-    # trunk the RGB batch as it is.
-    assert c["h2d_bytes"] == (3 * 64 * 64 if which == "sift" else images.nbytes)
+    # SIFT and the trunk both upload the uint8 RGB batch as it is (SIFT
+    # turns it gray and letterboxes it on the device).
+    assert c["h2d_bytes"] == images.nbytes
+    if which == "sift":
+        assert c["ingest.on_card"] == 3 and "ingest.on_host" not in c
 
 
 def test_the_profiler_trace_holds_one_annotation_per_span(sift_encoder, tmp_path):

@@ -16,10 +16,14 @@ import numpy as np
 import pytest
 import torch
 
+from pyvisim_tpu.features import _features as JF
 from pyvisim_tpu.ops import gaussian as jgauss
 from pyvisim_tpu.ops import sift as J
+from pyvisim_tpu_torch import profiling
+from pyvisim_tpu_torch.features import RootSIFT
 from pyvisim_tpu_torch.ops import gaussian as tgauss
 from pyvisim_tpu_torch.ops import sift as T
+from pyvisim_tpu_torch.ops.cuda import ingest as KI
 from pyvisim_tpu_torch.ops.cuda import sift_window as K
 
 PS, MAX_KP = 96, 160
@@ -367,6 +371,101 @@ def test_letterbox_matches_jax(dtype):
                 np.testing.assert_array_equal(got, want)
             else:
                 np.testing.assert_allclose(got, want, atol=1e-3)
+
+
+def _raw_image(rng, h, w, kind):
+    shape = {"gray": (h, w), "rgb": (h, w, 3), "rgba": (h, w, 4)}[kind]
+    return rng.integers(0, 256, shape, dtype=np.uint8)
+
+
+def _plain_ingest(images, size):
+    """The device route's plain version on one chunk: its tables as
+    ``sift_descriptors`` builds them, then ``gray_letterbox_reference``."""
+    raw, layout, taps = T._chunk_layout(images, size)
+    return KI.gray_letterbox_reference(torch.from_numpy(raw), layout, taps, size).numpy()
+
+
+@pytest.mark.parametrize("size", [64, 96, 512])
+@pytest.mark.parametrize("kind", ["gray", "rgb", "rgba"])
+@pytest.mark.parametrize("hw", LETTERBOX_SIZES, ids=lambda hw: f"{hw[0]}x{hw[1]}")
+def test_gray_letterbox_plain_version_matches_host_and_jax(hw, kind, size):
+    """The ingest kernel's plain version (gray and letterbox of raw uint8
+    pixels in one pass) equals the host route, the port's and the JAX
+    package's, bit for bit: an image that keeps its size (64x64 and 96x96
+    at their size) included."""
+    img = _raw_image(np.random.default_rng(hw[0] * 1000 + hw[1]), *hw, kind)
+    got = _plain_ingest([img], size)
+    assert got.shape == (1, size, size) and got.dtype == np.uint8
+    np.testing.assert_array_equal(got[0], T._letterbox(T._to_gray_u8(img), size))
+    np.testing.assert_array_equal(got[0], J._letterbox(JF._to_gray_u8(img), size))
+
+
+def test_gray_letterbox_plain_version_on_a_ragged_chunk():
+    """One call over images of mixed shapes and channels, some of one shape
+    (their taps shared), as a batch array and as a list."""
+    rng = np.random.default_rng(5)
+    images = [_raw_image(rng, h, w, kind) for h, w, kind in
+              [(50, 70, "rgb"), (30, 20, "gray"), (64, 64, "rgba"), (50, 70, "rgb"),
+               (1, 1, "rgb"), (130, 95, "gray"), (50, 70, "gray")]]
+    raw, layout, taps = T._chunk_layout(images, 64)
+    assert len(taps) == 4 * sum(layout[i, 4] + layout[i, 5] for i in (0, 1, 2, 4, 5))
+    got = _plain_ingest(images, 64)
+    for out, img in zip(got, images):
+        np.testing.assert_array_equal(out, T._letterbox(T._to_gray_u8(img), 64))
+    batch = np.stack([_raw_image(rng, 37, 53, "rgb") for _ in range(3)])
+    np.testing.assert_array_equal(
+        _plain_ingest(batch, 64), np.stack([T._letterbox(T._to_gray_u8(im), 64) for im in batch]))
+
+
+def test_gray_letterbox_refuses_what_the_kernel_does_not_take():
+    img = np.zeros((5, 7, 3), np.uint8)
+    raw, layout, taps = T._chunk_layout([img], 16)
+    raw = torch.from_numpy(raw)
+    with pytest.raises(TypeError, match="uint8"):
+        KI.gray_letterbox(raw.float(), layout, taps, 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        KI.gray_letterbox(raw.reshape(5, 21)[:, ::2], layout, taps, 16)
+    two = layout.copy()
+    two[0, 3] = 2
+    with pytest.raises(ValueError, match="not 2"):
+        KI.gray_letterbox(raw, two, taps, 16)
+    with pytest.raises(ValueError, match="outside raw"):
+        KI.gray_letterbox(raw[:-1], layout, taps, 16)
+    with pytest.raises(ValueError, match="taps must index"):
+        KI.gray_letterbox(raw, layout, taps + 7, 16)
+    with pytest.raises(ValueError, match="2-D gray or 3-D"):
+        T._chunk_layout([np.zeros((2, 3, 4, 1), np.uint8)], 16)
+
+
+def test_raw_rgb_images_give_the_host_routes_descriptors(monkeypatch):
+    """``sift_descriptors`` and the extractor on raw uint8 RGB(A) images
+    (gray and letterbox in the ingest kernel's plain version) give the
+    host route's desc and mask on the same images turned gray first; the
+    counters tell the routes apart."""
+    rng = np.random.default_rng(8)
+    images = []
+    for seed, (h, w) in enumerate([(110, 150), (90, 120), (110, 150)]):
+        gray = blob_image(seed, h, w).astype(np.float64)
+        tint = rng.uniform(0.6, 1.2, 3)
+        images.append(np.clip(gray[..., None] * tint, 0, 255).astype(np.uint8))
+    images[1] = np.concatenate([images[1], np.full((90, 120, 1), 7, np.uint8)], axis=2)
+    grays = [T._to_gray_u8(im) for im in images]
+    with profiling.record() as rec:
+        got = T.sift_descriptors(images, TCFG, root_sift=True, run_on="cpu")
+    assert rec.counters()["ingest.on_card"] == 3 and "ingest.on_host" not in rec.counters()
+    assert "ingest.gray" not in {sp.name for sp in rec.spans}
+    with monkeypatch.context() as m:
+        m.setattr(T, "_all_uint8", lambda images: False)
+        with profiling.record() as rec:
+            want = T.sift_descriptors(grays, TCFG, root_sift=True, run_on="cpu")
+        assert rec.counters()["ingest.on_host"] == 3
+    assert want["mask"].sum() > 20
+    for key in ("desc", "mask"):
+        np.testing.assert_array_equal(got[key], want[key])
+    ext = RootSIFT(max_keypoints=MAX_KP, process_size=PS, device="cpu")
+    desc, mask = ext.extract_batch(np.stack([images[0], images[2]]))
+    np.testing.assert_array_equal(desc, want["desc"][[0, 2]])
+    np.testing.assert_array_equal(mask, want["mask"][[0, 2]])
 
 
 def test_sift_config_checks_as_jax():
