@@ -20,6 +20,12 @@ channels, float otherwise; the 7x7 stem stays float. BatchNorm follows the
 dequantised output. On CUDA the int8 3x3 stride-1 convs run through kernel
 8 (no bias, no ReLU, no pool), the 1x1 and 3x3 stride-2 convs through
 ``quant.int8_gemm_conv``; the int8 trunk runs channels-last.
+
+Under ``profiling.record()`` the trunk opens the spans ``resnet.stem`` and
+``resnet.layer1`` ... ``resnet.layer4``, and each call of an int8 trunk's
+block conv adds one to the counter of the route it takes:
+``resnet.float_convs``, ``resnet.int8_k8`` (kernel 8) or
+``resnet.int8_gemm`` (``int8_gemm_conv``).
 """
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import profiling
 from .quant import QuantConv
 
 __all__ = ["ResNetTrunk", "RESNET_CFGS", "init_params", "params_from_jax"]
@@ -42,6 +49,7 @@ RESNET_CFGS = {
     "resnet50": ("bottleneck", (3, 4, 6, 3)),
 }
 _STAGE_WIDTHS = (64, 128, 256, 512)
+_STAGE_SPANS = tuple(f"resnet.layer{i + 1}" for i in range(4))
 
 
 class FrozenBatchNorm2d(nn.BatchNorm2d):
@@ -72,13 +80,15 @@ class FrozenBatchNorm2d(nn.BatchNorm2d):
 class BlockConv(QuantConv):
     """A bias-less block conv of the int8 trunk, routed by its input: int8
     through ``QuantConv`` where :meth:`uses_int8` holds, else a float conv
-    with ``w_x``, the float32 master in the trunk's dtype."""
+    with ``w_x``, the float32 master in the trunk's dtype. Each call counts
+    its route (see the module docstring)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int, stride: int,
                  padding: int, min_spatial: int, max_spatial: int):
         super().__init__(in_channels, out_channels, kernel_size, stride, padding, bias=False)
         self.min_spatial, self.max_spatial = min_spatial, max_spatial
         self.register_buffer("w_x", torch.zeros(self.weight.shape), persistent=False)
+        self._int8_counter = "resnet.int8_k8" if self._is_3x3_same else "resnet.int8_gemm"
         self._derive()
 
     @torch.no_grad()
@@ -93,7 +103,9 @@ class BlockConv(QuantConv):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.uses_int8(x):
+            profiling.count(self._int8_counter, 1)
             return super().forward(x)
+        profiling.count("resnet.float_convs", 1)
         return F.conv2d(x, self.w_x, None, self.stride, self.padding)
 
 
@@ -223,10 +235,12 @@ class ResNetTrunk(nn.Module):
                 m.reset_parameters()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = torch.relu(self.bn1(self.conv1(x)))
-        x = F.max_pool2d(x, 3, 2, padding=1)
+        with profiling.span("resnet.stem"):
+            x = torch.relu(self.bn1(self.conv1(x)))
+            x = F.max_pool2d(x, 3, 2, padding=1)
         for stage in range(self.n_stages):
-            x = getattr(self, f"layer{stage + 1}")(x)
+            with profiling.span(_STAGE_SPANS[stage]):
+                x = getattr(self, f"layer{stage + 1}")(x)
         return x
 
 

@@ -20,7 +20,8 @@ parent's): ``encode``; ``ingest.gray``, ``ingest.letterbox`` and
 ``ingest.upload``, the images turned gray, letterboxed and copied to the
 device (SIFT's uint8 images are copied raw and turned gray and
 letterboxed by one kernel launch inside ``ingest.letterbox``, with no
-``ingest.gray``); ``features``, the extractor's device work;
+``ingest.gray``); ``features``, the extractor's device work, and in it
+a ResNet trunk's ``resnet.stem`` and ``resnet.layer1`` ... ``resnet.layer4``;
 ``aggregate``, the encode core; ``readback``, the encodings' copy to the
 host; ``query`` and ``search`` of ``RetrievalIndex``; and, outside any
 batch, ``init`` of the extractors and encoders and ``load_kernels`` of
@@ -29,7 +30,9 @@ they were copied up: raw pixels where the device turns them gray,
 letterboxed ones where the host did), ``d2h_bytes``, ``sift.keypoints``
 (valid keypoints), ``sift.slots`` (keypoint slots), and
 ``ingest.on_card`` and ``ingest.on_host``, the SIFT images turned gray
-and letterboxed on the device and on the host.
+and letterboxed on the device and on the host, and ``resnet.float_convs``,
+``resnet.int8_k8`` and ``resnet.int8_gemm``, an int8 ResNet trunk's block
+convs by the route each call took.
 """
 from __future__ import annotations
 

@@ -15,6 +15,7 @@ from pyvisim_tpu_torch import index as tindex
 from pyvisim_tpu_torch import profiling
 from pyvisim_tpu_torch.encoders import Pipeline, VLADEncoder
 from pyvisim_tpu_torch.features import DeepConvFeature, RootSIFT
+from pyvisim_tpu_torch.models.resnet import ResNetTrunk
 from pyvisim_tpu_torch.ops.codebooks import KMeansCodebook
 from pyvisim_tpu_torch.ops.cuda import _build
 
@@ -25,6 +26,14 @@ SIFT_TREE = {"encode": None, "ingest.letterbox": "encode",
              "readback": "encode"}
 DEEP_TREE = {"encode": None, "ingest.upload": "encode", "features": "encode",
              "aggregate": "encode", "readback": "encode"}
+RESNET_STAGES = ["resnet.stem", "resnet.layer1", "resnet.layer2", "resnet.layer3",
+                 "resnet.layer4"]
+# The int8 ResNet50's block convs at 96^2 by route, per image batch: the
+# stem leaves 24^2, so layer1 (24), layer2 (24 -> 12) and layer3's first
+# block's convs at 12 run int8 (the 3x3 stride-1 convs through kernel 8:
+# 3 + 3; the rest through the gemm route: 7 + 10 + 3), and the 26 convs at
+# 6 and 3, below the window, run float.
+RESNET96_ROUTES = {"resnet.float_convs": 26, "resnet.int8_k8": 6, "resnet.int8_gemm": 20}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -51,6 +60,12 @@ def deep_encoder():
     ext = DeepConvFeature("vgg16", int8=True, dtype=torch.bfloat16, image_size=32, device="cpu")
     centers = torch.from_numpy(np.random.default_rng(2).random((8, 514), np.float32))
     return VLADEncoder(ext, kmeans_model=KMeansCodebook(centers=centers), device="cpu")
+
+
+@pytest.fixture(scope="module")
+def resnet_extractor():
+    return DeepConvFeature(module=ResNetTrunk("resnet50", int8=True), dtype=torch.bfloat16,
+                           image_size=96, device="cpu")
 
 
 def _tree(rec, root: int) -> dict:
@@ -230,3 +245,29 @@ def test_loading_a_library_is_a_span(monkeypatch):
     with profiling.record() as rec:
         _build.load_library.__wrapped__("aggregate")
     assert [s.name for s in rec.spans] == ["load_kernels"]
+
+
+def test_off_the_resnet_trunk_reads_the_flag_and_records_nothing(resnet_extractor, monkeypatch):
+    def called(*args, **kwargs):
+        raise AssertionError("recording work while recording is off")
+
+    monkeypatch.setattr(profiling._Open, "__init__", called)
+    monkeypatch.setattr(profiling.Record, "add", called)
+    assert profiling.span("resnet.stem") is profiling.span("resnet.layer4")
+    desc, _ = resnet_extractor.extract_batch(_images(2))
+    assert desc.shape == (2, 9, 2050)
+
+
+def test_the_resnet_trunk_records_its_stages_in_features_and_counts_routes(resnet_extractor):
+    with profiling.record() as rec:
+        resnet_extractor.extract_batch(_images(2))
+        resnet_extractor.extract_batch(_images(1, seed=7))
+    feats = [i for i, s in enumerate(rec.spans) if s.name == "features"]
+    assert len(feats) == 2
+    for f in feats:
+        under = [s for s in rec.spans if s.parent == f]
+        assert [s.name for s in under] == RESNET_STAGES
+        assert all(_inside(s, rec.spans[f]) for s in under)
+        assert all(a.end_ns <= b.start_ns for a, b in zip(under, under[1:]))
+    c = rec.counters()
+    assert {k: c[k] for k in RESNET96_ROUTES} == {k: 2 * v for k, v in RESNET96_ROUTES.items()}
