@@ -49,7 +49,13 @@ Phases, each of which raises on a failed check:
       Then the ingest kernel (raw uint8 images turned gray and letterboxed)
       bit for bit with its plain version and the host numpy route on a
       chunk of 16 RGB images at 500x667 and a ragged chunk, timed beside
-      its byte bound, the raw upload and the host route.
+      its byte bound, the raw upload and the host route. Then the int8
+      gemm route's float passes at ResNet50's widest gemm conv at 448^2
+      (layer3's 1x1/2 downsample, 64 x 56^2 x 512 bf16 to 28^2 x 1,024):
+      kernel 8's amax and quantise launches and the epilogue kernel in its
+      three modes (BatchNorm; + ReLU; + residual + ReLU), each bit for bit
+      with its plain version, timed beside its byte bound and the torch
+      passes it replaces.
    e. The fused conv kernels at the int8 trunk's shapes (VGG16, 224^2,
       bf16, B=128): kernel 7 at conv1 and conv3, kernel 8 pooled at conv6
       and conv9 and unpooled at conv4, 5, 7 and 8, each against its plain
@@ -141,15 +147,19 @@ Phases, each of which raises on a failed check:
 10. ResNet50 trunks: kernels 1 and 3 at D = 2,050 against their plain
    versions at phase 2a's and 2c's gates (128 sets of 49; 6,272 rows),
    timed; ``DeepConvFeature(module=ResNetTrunk("resnet50"))`` at 224^2 on
-   phase 3's 128 images in float32 (TF32 off), bf16 and int8 (window
-   7-56): the float32 trunk on the card against the CPU on 2 images
+   phase 3's 128 images in float32 (TF32 off), bf16, int8 (window 7-56,
+   float32 around the int8 convs) and int8 in bf16 (the ResNet cell's
+   dtype): the float32 trunk on the card against the CPU on 2 images
    (cosine > 0.9999); ``learn()`` of K-Means-256 on the float trunk's
    6,272 descriptors (one kernel-3 launch per Lloyd step); VLAD with those
    centers on each trunk, one kernel-1 launch per encode, and in int8 13
-   kernel-8 launches and 39 ``int8_gemm_conv`` calls; self-retrieval on
-   each; every kernel-8, ``int8_gemm_conv`` and kernel-1 call of one int8
-   encode against its plain version on the path's arguments (int32 sums
-   bit for bit); int8 against float32 descriptors at cosine > 0.995 per
+   kernel-8 launches and 39 ``int8_gemm_conv`` calls, each ending in one
+   epilogue launch, the 39 in bf16 with their BatchNorm in it (counter
+   ``resnet.int8_gemm_fused``); self-retrieval on each; every kernel-8,
+   ``int8_gemm_conv`` and kernel-1 call of each int8 encode against its
+   plain version on the path's arguments (int32 sums bit for bit, the
+   bf16 encode's fused calls against the plain conv, BatchNorm, residual
+   add and ReLU); int8 against float32 descriptors at cosine > 0.995 per
    image. Prints the trunks' ms per 128 images, encode img/s, each int8
    route's ms beside its bound, and the int8 trunk's device profile.
 11. The clustering evaluation at Oxford Flowers-102's scale: a tree in the
@@ -1386,6 +1396,90 @@ def phase_ingest(ingest):
     log(f"ingest: kernel {kernel_ms:.4f} ms device, call {call_ms:.4f} ms, plain {plain_ms:.4f} "
         f"ms, bound {b['bound_ms']:.4f} ms ({b}); raw upload {upload_ms:.4f} ms; host route "
         f"{rec['host_route_ms']:.2f} ms per 16 images")
+    return rec
+
+
+def phase_int8_epilogue(conv, epi):
+    """The int8 gemm route's float passes around ``torch._int_mm`` at
+    ResNet50's widest gemm conv at 448^2 (layer3's 1x1/2 downsample: 64 x
+    56^2 x 512 bf16 in, 28^2 x 1,024 out), on BatchNorm drawn as the ResNet
+    cell draws it: kernel 8's amax and quantise launches against the torch
+    quantiser they replace (``quantize_activation``: a reduction, a cast,
+    a divide, a round, a clamp and a cast), and the epilogue kernel in each
+    mode against the torch passes it replaces (a cast, two multiplies and a
+    cast to dequantise, ``F.batch_norm``, the residual add, ``relu``); each
+    bit for bit with its plain version first, then timed beside its byte
+    bound (device time from the profiler, the call's with CUDA events)."""
+    from pyvisim_tpu_torch.models import quant
+    from pyvisim_tpu_torch.ops.cuda.aggregate import launch_target
+
+    b, h, cin, cout, ho = 64, 56, 512, 1024, 28
+    g = torch.Generator(device="cuda").manual_seed(21)
+    x = torch.randn((b, h, h, cin), device="cuda", generator=g).relu_().to(torch.bfloat16)
+    wq, sw = conv.quantize_weight(torch.randn(cout, 1, 1, cin, device="cuda", generator=g)
+                                  / cin ** 0.5)
+    wq = wq.contiguous()
+    bn = (torch.rand(cout, device="cuda", generator=g) + 0.5,
+          0.1 * torch.randn(cout, device="cuda", generator=g),
+          0.1 * torch.randn(cout, device="cuda", generator=g),
+          1.5 * torch.rand(cout, device="cuda", generator=g) + 0.5, 1e-5)
+    residual = torch.randn((b, ho, ho, cout), device="cuda", generator=g).to(torch.bfloat16)
+    lib = conv._library()
+    dev, stream = launch_target(x.device)
+    sx = conv._scale_launch(lib, x, dev, stream)
+    xq = conv._quantize_launch(lib, x, sx, dev, stream)
+    want_xq, want_sx = conv.quantize_activation(x)
+    check(torch.equal(sx, want_sx) and torch.equal(xq, want_xq),
+          "kernel 8's quantiser differs from quantize_activation at the gemm route's shape")
+    rows, _ = quant._im2col_rows(xq, 1, 2, 0)
+    acc = quant._int_mm(rows, wq.reshape(cout, cin)).view(b, ho, ho, cout)
+    n_in, n_out = x.numel(), acc.numel()
+    quantiser = {
+        "amax": {"call": lambda: conv._scale_launch(lib, x, dev, stream), "bytes": 2 * n_in},
+        "quantise": {"call": lambda: conv._quantize_launch(lib, x, sx, dev, stream),
+                     "bytes": 2 * n_in + n_in},
+    }
+    rec = {"name": "int8_gemm_epilogue", "route": "cuda",
+           "source": "pyvisim_tpu_torch/csrc/int8_epilogue.cu", "replaces": None,
+           "replaces_function": "none: the int8 gemm route's dequantise + BatchNorm epilogue",
+           "library_ms": None, "shape": f"{b} x {h}^2 x {cin} bf16 -> 1x1/2 -> {ho}^2 x {cout}"}
+    for name, part in quantiser.items():
+        rec[name] = {"device_ms": profile_device_graph(part["call"], reps=20)["kernel_ms_per_call"],
+                     "ms": cuda_ms(part["call"]), **bound(0, part["bytes"])}
+    rec["torch_quantiser_ms"] = cuda_ms(lambda: conv.quantize_activation(x))
+    rec["torch_quantiser"] = profile_device_graph(lambda: conv.quantize_activation(x), reps=5)
+    modes = {"bn": {"bn": bn}, "bn_relu": {"bn": bn, "relu": True},
+             "bn_residual_relu": {"bn": bn, "relu": True, "residual": residual}}
+    for mode, kw in modes.items():
+        call = lambda kw=kw: epi.gemm_epilogue(acc, sx, sw, dtype=torch.bfloat16, **kw)
+        plain = lambda kw=kw: epi.gemm_epilogue_reference(acc, sx, sw, dtype=torch.bfloat16, **kw)
+        check(torch.equal(call(), plain()), f"the epilogue kernel ({mode}) differs from its plain version")
+        n_bytes = 4 * n_out + 2 * n_out + (2 * n_out if "residual" in kw else 0) + 4 * b + 20 * cout
+        rec[mode] = {"device_ms": profile_device_graph(call, reps=20)["kernel_ms_per_call"],
+                     "ms": cuda_ms(call), "plain_ms": cuda_ms(plain),
+                     "plain": profile_device_graph(plain, reps=5), **bound(0, n_bytes)}
+    # In float32 the kernel's BatchNorm is ATen's, which F.batch_norm runs on
+    # an NCHW-contiguous map; a channels-last one (the trunk's layout) goes
+    # to cuDNN: how far apart the two are, in float32 steps.
+    got = epi.gemm_epilogue(acc, sx, sw, dtype=torch.float32, bn=bn)
+    y = epi.gemm_epilogue_reference(acc, sx, sw, dtype=torch.float32).permute(0, 3, 1, 2)
+    weight, bias, mean, var, eps = bn
+    aten = F.batch_norm(y.contiguous(), mean, var, weight, bias, False, 0.0, eps)
+    cudnn = F.batch_norm(y, mean, var, weight, bias, False, 0.0, eps)
+    check(torch.equal(got, aten.permute(0, 2, 3, 1)),
+          "the float32 epilogue differs from ATen's BatchNorm on an NCHW map")
+    cudnn = cudnn.permute(0, 2, 3, 1)
+    step = torch.nextafter(cudnn.abs(), torch.tensor(float("inf"), device="cuda")) - cudnn.abs()
+    apart = (got - cudnn).abs() / step
+    rec["float32_vs_cudnn"] = {"share_differing": float((got != cudnn).float().mean()),
+                               "max_steps": float(apart.max()),
+                               "share_one_step": float((apart == 1).float().mean())}
+    log(json.dumps({"int8_epilogue": rec}))
+    log("int8 gemm route at layer3's downsample: amax {:.4f} ms, quantise {:.4f} ms (torch "
+        "quantiser {:.4f} ms); epilogue bn {:.4f}, +relu {:.4f}, +residual {:.4f} ms device "
+        "(torch passes {:.4f}, {:.4f}, {:.4f} ms)".format(
+            rec["amax"]["device_ms"], rec["quantise"]["device_ms"], rec["torch_quantiser_ms"],
+            *(rec[m]["device_ms"] for m in modes), *(rec[m]["plain_ms"] for m in modes)))
     return rec
 
 
@@ -2797,15 +2891,17 @@ def resnet_kernel_gates(agg, ls) -> dict:
     return {"vlad_aggregate": vlad, "lloyd_stats": lloyd}
 
 
-def gemm_bound(x, wq, stride: int) -> dict:
+def gemm_bound(x, wq, stride: int, residual=None) -> dict:
     """The least time of one int8_gemm_conv call: its int8 operations at the
-    int8 tensor rate, or x, the weights and the output moved once."""
+    int8 tensor rate, or x, the weights, the residual and the output moved
+    once."""
     b, h, w, cin = x.shape
     cout, k = wq.shape[0], wq.shape[1]
     ho, wo = (h + 2 * (k // 2) - k) // stride + 1, (w + 2 * (k // 2) - k) // stride + 1
     ops = 2 * b * ho * wo * k * k * cin * cout
     size = x.element_size()
-    n_bytes = size * b * h * w * cin + wq.numel() + 4 * cout + size * b * ho * wo * cout
+    n_bytes = (size * b * h * w * cin + wq.numel() + 4 * cout
+               + size * b * ho * wo * cout * (1 if residual is None else 2))
     ops_ms, bytes_ms = ops / INT8_TENSOR_OPS * 1e3, n_bytes / HBM_BYTES_PER_S * 1e3
     return {"bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
@@ -2819,12 +2915,16 @@ def resnet_on_path_checks(conv, quant, agg, run):
     second call that is not counted), kernel 1's call through
     ``vlad_on_path_gate``, and each int8 route timed beside its bound.
     Returns what ``run()`` returns, the records and the times by route and
-    shape."""
+    shape. A fused call (BatchNorm, and ReLU or the residual add and ReLU,
+    in the epilogue) is held against the plain conv followed by
+    ``batch_norm_tail``, the chain of torch passes it replaces."""
     from pyvisim_tpu_torch.ops import vlad as vlad_ops
+    from pyvisim_tpu_torch.ops.cuda import int8_epilogue
 
     saved_k8, saved_gemm = conv.conv3x3_q8, quant.int8_gemm_conv
     saved_vlad = vlad_ops.vlad_aggregate_batched
-    counts = (saved_k8.launches, saved_gemm.launches, agg.vlad_aggregate_batched.launches)
+    counts = (saved_k8.launches, saved_gemm.launches, agg.vlad_aggregate_batched.launches,
+              int8_epilogue.gemm_epilogue.launches)
     records, routes = [], {}
 
     def timed(key, fn, n_bytes_bound):
@@ -2847,15 +2947,22 @@ def resnet_on_path_checks(conv, quant, agg, run):
         _, acc = saved_gemm(x, wq, sw, b, stride=stride, padding=padding, return_acc=True)
         want, want_acc = conv.quant_conv_reference(x, wq, sw, b, stride=stride, padding=padding,
                                                    return_acc=True)
+        bn, relu, residual = kwargs.get("bn"), kwargs.get("relu", False), kwargs.get("residual")
+        want = int8_epilogue.batch_norm_tail(
+            want.permute(0, 3, 1, 2), bn, relu,
+            None if residual is None else residual.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        parts = [name for name, on in (("bn", bn is not None), ("residual", residual is not None),
+                                       ("relu", relu)) if on]
+        mode = "".join(f" +{name}" for name in parts)
         rec = {"kernel": "int8_gemm_conv", "shape": list(x.shape), "cout": int(wq.shape[0]),
-               "k": int(wq.shape[1]), "stride": stride}
+               "k": int(wq.shape[1]), "stride": stride, "epilogue": parts}
         check(torch.equal(acc, want_acc), f"int8_gemm_conv's int32 sums differ: {rec}")
         check(torch.equal(out, want), f"int8_gemm_conv differs from its plain version: {rec}")
         records.append(rec)
         _, h, w, cin = x.shape
-        key = f"gemm {wq.shape[1]}x{wq.shape[2]}/{stride} {h}x{w}x{cin}->{wq.shape[0]}"
-        timed(key, lambda: saved_gemm(x, wq, sw, b, stride=stride, padding=padding),
-              gemm_bound(x, wq, stride))
+        key = f"gemm {wq.shape[1]}x{wq.shape[2]}/{stride} {h}x{w}x{cin}->{wq.shape[0]}{mode}"
+        timed(key, lambda: saved_gemm(x, wq, sw, b, stride=stride, padding=padding, **kwargs),
+              gemm_bound(x, wq, stride, residual))
         return out
 
     def vlad_checked(desc, mask, centers):
@@ -2875,7 +2982,8 @@ def resnet_on_path_checks(conv, quant, agg, run):
     finally:
         conv.conv3x3_q8, quant.int8_gemm_conv = saved_k8, saved_gemm
         vlad_ops.vlad_aggregate_batched = saved_vlad
-        saved_k8.launches, saved_gemm.launches, agg.vlad_aggregate_batched.launches = counts
+        (saved_k8.launches, saved_gemm.launches, agg.vlad_aggregate_batched.launches,
+         int8_epilogue.gemm_epilogue.launches) = counts
     kinds = [r["kernel"] for r in records]
     check(kinds.count("conv3x3_q8") == R50_K8 and kinds.count("int8_gemm_conv") == R50_GEMM
           and kinds.count("vlad_aggregate") == 1,
@@ -2885,25 +2993,27 @@ def resnet_on_path_checks(conv, quant, agg, run):
 
 def phase_resnet(conv, agg, ls, images):
     """Phase 10: DeepConvFeature(module=ResNetTrunk("resnet50")) at 224^2 on
-    the 128 images of phase 3, in float32 (TF32 off), bf16 and int8 (window
-    7-56, float32 around the int8 convs); K-Means-256 learned on the float
-    trunk's descriptors (kernel 3 at D = 2,050) and VLAD with it on every
-    trunk (kernel 1 at 128 x 49 x 2,050)."""
+    the 128 images of phase 3, in float32 (TF32 off), bf16, int8 (window
+    7-56, float32 around the int8 convs) and int8 in bf16; K-Means-256
+    learned on the float trunk's descriptors (kernel 3 at D = 2,050) and
+    VLAD with it on every trunk (kernel 1 at 128 x 49 x 2,050)."""
+    from pyvisim_tpu_torch import profiling
     from pyvisim_tpu_torch.encoders import VLADEncoder
     from pyvisim_tpu_torch.features import DeepConvFeature
     from pyvisim_tpu_torch.models import quant
     from pyvisim_tpu_torch.models import resnet as R
+    from pyvisim_tpu_torch.ops.cuda import int8_epilogue as epi
 
     t_phase = time.perf_counter()
     numbers = {"kernels": resnet_kernel_gates(agg, ls)}
     weights = R.init_params("resnet50")
 
     def extractor(name, device=None):
-        return DeepConvFeature(module=R.ResNetTrunk("resnet50", int8=name == "int8"),
+        return DeepConvFeature(module=R.ResNetTrunk("resnet50", int8=name.startswith("int8")),
                                params=weights, image_size=224, device=device,
-                               dtype=torch.bfloat16 if name == "bf16" else torch.float32)
+                               dtype=torch.bfloat16 if name.endswith("bf16") else torch.float32)
 
-    exts = {name: extractor(name) for name in ("float32", "bf16", "int8")}
+    exts = {name: extractor(name) for name in ("float32", "bf16", "int8", "int8_bf16")}
     check(all(e.output_dim == R50_D and e.descriptor_budget == R50_N for e in exts.values()),
           "ResNet50 descriptors are not 49 x 2,050")
     # The card's float32 trunk against the CPU's on 2 images.
@@ -2916,7 +3026,8 @@ def phase_resnet(conv, agg, ls, images):
 
     # The path: learn() on the float trunk, then VLAD on each trunk.
     wrappers = {"vlad": agg.vlad_aggregate_batched, "lloyd": ls.lloyd_stats,
-                "k8": conv.conv3x3_q8, "gemm": quant.int8_gemm_conv}
+                "k8": conv.conv3x3_q8, "gemm": quant.int8_gemm_conv,
+                "epilogue": epi.gemm_epilogue}
     for w in wrappers.values():
         w.launches = 0
     history = {}
@@ -2931,23 +3042,28 @@ def phase_resnet(conv, agg, ls, images):
     check(inertia[-1] <= inertia[0], "final inertia above the k-means++ centers' inertia")
     centers = vlad_f32.clustering_model
     encoders = {"float32": vlad_f32, **{name: VLADEncoder(exts[name], kmeans_model=centers)
-                                        for name in ("bf16", "int8")}}
+                                        for name in ("bf16", "int8", "int8_bf16")}}
     per_encode, vecs = {}, {}
     for name, enc in encoders.items():
         enc.encode(list(images[:8]))  # warm up
         before = {k: w.launches for k, w in wrappers.items()}
-        vecs[name] = enc.encode(list(images))
+        with profiling.record() as rec:
+            vecs[name] = enc.encode(list(images))
         per_encode[name] = {k: w.launches - before[k] for k, w in wrappers.items()}
+        per_encode[name]["fused"] = rec.counters().get("resnet.int8_gemm_fused", 0)
         check(vecs[name].shape == (B, K * R50_D) and bool(np.isfinite(vecs[name]).all()),
               f"{name} ResNet50 VLAD encodings")
         self_retrieval(enc, images)
-    want = {"vlad": 1, "lloyd": 0, "k8": 0, "gemm": 0}
+    want = {"vlad": 1, "lloyd": 0, "k8": 0, "gemm": 0, "epilogue": 0, "fused": 0}
     check(per_encode["float32"] == want and per_encode["bf16"] == want,
           f"float ResNet50 encodes ran {per_encode}")
-    check(per_encode["int8"] == {**want, "k8": R50_K8, "gemm": R50_GEMM},
-          f"the int8 ResNet50 encode ran {per_encode['int8']}")
+    # One epilogue launch per gemm-route call; in bf16 each takes its BatchNorm.
+    want_int8 = {**want, "k8": R50_K8, "gemm": R50_GEMM, "epilogue": R50_GEMM}
+    check(per_encode["int8"] == want_int8 and per_encode["int8_bf16"] == {
+        **want_int8, "fused": R50_GEMM}, f"the int8 ResNet50 encodes ran {per_encode}")
     launches = {k: w.launches for k, w in wrappers.items()}
-    check(all(launches[k] for k in ("vlad", "lloyd", "k8")), f"phase 10 launches {launches}")
+    check(all(launches[k] for k in ("vlad", "lloyd", "k8", "epilogue")),
+          f"phase 10 launches {launches}")
     log(f"resnet50: learn {learn_s:.2f} s ({len(inertia)} Lloyd steps, inertia "
         f"{inertia[0]:.6g} -> {inertia[-1]:.6g}); launches per encode {per_encode}")
 
@@ -2955,9 +3071,16 @@ def phase_resnet(conv, agg, ls, images):
     # versions, the trunks against each other, and the times.
     _, records, routes = resnet_on_path_checks(
         conv, quant, agg, lambda: encoders["int8"].encode(list(images)))
+    _, records_bf16, routes_bf16 = resnet_on_path_checks(
+        conv, quant, agg, lambda: encoders["int8_bf16"].encode(list(images)))
+    fused = [r for r in records_bf16 if "bn" in r.get("epilogue", ())]
+    check(len(fused) == R50_GEMM and not any(r.get("epilogue") for r in records),
+          f"{len(fused)} fused calls checked in the bf16 int8 encode, "
+          f"{sum(bool(r.get('epilogue')) for r in records)} in the float32 one")
     descs = {name: e.extract_batch(images)[0][..., :-2].float().reshape(B, -1).cpu().numpy()
              for name, e in exts.items()}
-    cos = {name: cosine_rows(descs[name], descs["float32"]) for name in ("int8", "bf16")}
+    cos = {name: cosine_rows(descs[name], descs["float32"])
+           for name in ("int8", "bf16", "int8_bf16")}
     cos["int8_vlad"] = cosine_rows(vecs["int8"], vecs["float32"])
     log("resnet50: cosine against the float32 trunk per image, min/mean: " + ", ".join(
         f"{n} {c.min():.6f}/{c.mean():.6f}" for n, c in cos.items()))
@@ -2973,7 +3096,9 @@ def phase_resnet(conv, agg, ls, images):
     numbers["encode_img_per_s"] = {name: images_per_s(enc, images)
                                    for name, enc in encoders.items()}
     numbers["int8_routes"] = routes
-    numbers["int8_calls_checked"] = len(records)
+    numbers["int8_bf16_routes"] = routes_bf16
+    numbers["int8_calls_checked"] = len(records) + len(records_bf16)
+    numbers["int8_fused_calls_checked"] = len(fused)
     numbers["cosine_vs_f32_min"] = {n: float(c.min()) for n, c in cos.items()}
     numbers["learn_s"] = learn_s
     numbers["lloyd_iterations"] = len(inertia)
@@ -4164,6 +4289,7 @@ def run(flowers_root: pathlib.Path) -> int:
     from pyvisim_tpu_torch.ops.cuda import conv
     from pyvisim_tpu_torch.ops.cuda import gmm_stats as gs
     from pyvisim_tpu_torch.ops.cuda import ingest
+    from pyvisim_tpu_torch.ops.cuda import int8_epilogue as epi
     from pyvisim_tpu_torch.ops.cuda import lloyd_stats as ls
     from pyvisim_tpu_torch.ops.cuda import sift_window as sw
 
@@ -4180,6 +4306,7 @@ def run(flowers_root: pathlib.Path) -> int:
     lloyd_kernel = phase_lloyd_kernel(ls)
     sift_kernels = phase_sift_kernels(sw)
     ingest_kernel = phase_ingest(ingest)
+    epilogue_kernel = phase_int8_epilogue(conv, epi)
     conv_kernels = phase_conv_kernels(conv)
     launches, encode_launches, centers, ext, images = phase_slice(agg)
     kernel["launches"] = launches
@@ -4230,6 +4357,10 @@ def run(flowers_root: pathlib.Path) -> int:
     k8["launches_per_resnet50_int8_encode_of_128"] = R50_K8
     k8["resnet50_calls"] = {key: rec for key, rec in numbers10["int8_routes"].items()
                             if key.startswith("k8")}
+    epilogue_kernel["launches"] = launches10["epilogue"]
+    epilogue_kernel["launches_per_resnet50_int8_encode_of_128"] = R50_GEMM
+    epilogue_kernel["resnet50_bf16_calls"] = {
+        key: rec for key, rec in numbers10["int8_bf16_routes"].items() if key.startswith("gemm")}
     torch.cuda.empty_cache()
     launches11, numbers11 = phase_flowers(conv, agg, ls, enc8, flowers_root)
     lloyd_kernel["launches_clustering"] = launches11["lloyd"]
@@ -4243,7 +4374,7 @@ def run(flowers_root: pathlib.Path) -> int:
         rec["launches_parallel"] = launches12[rec["name"]]
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [kernel, gmm_kernel, lloyd_kernel, *sift_kernels, k7, k8,
-                                  ingest_kernel]}))
+                                  ingest_kernel, epilogue_kernel]}))
     print(json.dumps({
         "ok": True,
         "device": {

@@ -17,9 +17,10 @@ load and every move.
 On CUDA, the 3x3, stride-1, padding-1 conv runs through kernel 8. The
 other convs of ResNet's int8 blocks (1x1 at stride 1 or 2, 3x3 at stride 2
 with padding 1) run through :func:`int8_gemm_conv`, an exact int32 product
-on ``torch._int_mm``: JAX computes them with XLA's
-``lax.conv_general_dilated``, outside any Pallas kernel. Every other shape
-raises on CUDA.
+on ``torch._int_mm`` between kernel 8's quantiser and a hand-written
+epilogue that can take the BatchNorm, residual add and ReLU after the conv:
+JAX computes them with XLA's ``lax.conv_general_dilated``, outside any
+Pallas kernel. Every other shape raises on CUDA.
 """
 from __future__ import annotations
 
@@ -30,6 +31,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.cuda import conv as conv_ops
+from ..ops.cuda import int8_epilogue as epilogue_ops
+from ..ops.cuda.aggregate import launch_target
 
 __all__ = ["QuantConv", "int8_gemm_conv", "gemm_route"]
 
@@ -74,24 +77,39 @@ def _int_mm(rows: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
 
 def int8_gemm_conv(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
                    b: torch.Tensor | None = None, *, stride: int, padding,
-                   return_acc: bool = False):
-    """``QuantConv``'s exact int32 route for the convs of :func:`gemm_route`.
+                   return_acc: bool = False, bn=None, relu: bool = False,
+                   residual: torch.Tensor | None = None):
+    """``QuantConv``'s exact int32 route for the convs of :func:`gemm_route`,
+    optionally followed by a frozen BatchNorm, a residual add and ReLU.
 
     ``x (B, H, W, Cin)`` float32 or bfloat16 NHWC; ``wq (Cout, kh, kw, Cin)``
     int8 and ``sw (Cout,)``; ``b (Cout,)`` or None. ``x`` is quantised per
-    image on its whole extent (:func:`~..ops.cuda.conv.quantize_activation`,
-    the scale of the plain version), then cut into the conv's rows (a
-    strided slice for 1x1, an int8 im2col for 3x3), and the int32 sums are
-    ``torch._int_mm`` of those rows with ``wq`` as a ``(Cout, K)`` matrix (K
-    and Cout multiples of 8; fewer than 17 rows are padded with zero rows,
-    which add nothing). The epilogue is the plain version's,
-    ``float(acc) * (sx * sw) + b``, one rounding to ``x.dtype``, so the
-    result equals :func:`~..ops.cuda.conv.quant_conv_reference` bit for bit.
-    CPU tensors take that plain version. ``launches`` counts the CUDA calls.
+    image on its whole extent by kernel 8's amax and quantise launches
+    (``ops/cuda/conv.py``; bit for bit with
+    :func:`~..ops.cuda.conv.quantize_activation`), then cut into the conv's
+    rows (a strided slice for 1x1, an int8 im2col for 3x3), and the int32
+    sums are ``torch._int_mm`` of those rows with ``wq`` as a ``(Cout, K)``
+    matrix (K and Cout multiples of 8; fewer than 17 rows are padded with
+    zero rows, which add nothing). One launch of the epilogue kernel
+    (:func:`~..ops.cuda.int8_epilogue.gemm_epilogue`) then writes
+    ``float(acc) * (sx * sw) + b`` rounded once to ``x.dtype`` and, when
+    given, ``bn`` (``(weight, bias, running_mean, running_var, eps)``, as
+    ``F.batch_norm`` takes them), ``+ residual`` (NHWC, of the output's
+    shape and dtype) and ReLU, rounding where separate torch passes round:
+    the result equals :func:`~..ops.cuda.conv.quant_conv_reference` followed
+    by :func:`~..ops.cuda.int8_epilogue.batch_norm_tail` on the NCHW views,
+    bit for bit (on the card, with ``F.batch_norm`` run by ATen's own
+    kernel: always for bf16, for float32 on NCHW-contiguous maps; see the
+    epilogue's module). CPU
+    tensors take the plain quantiser, the exact conv of the plain version
+    and the epilogue's plain twin. ``launches`` counts the CUDA calls.
     """
     if x.device.type == "cpu":
-        return conv_ops.quant_conv_reference(x.contiguous(), wq, sw, b, stride=stride,
-                                             padding=padding, return_acc=return_acc)
+        xq, sx = conv_ops.quantize_activation(x.contiguous())
+        acc = conv_ops._int_conv(xq, wq, stride, padding)
+        y = epilogue_ops.gemm_epilogue(acc, sx, sw, b, dtype=x.dtype, bn=bn, relu=relu,
+                                       residual=residual)
+        return (y, acc) if return_acc else y
     kh, kw = wq.shape[1], wq.shape[2]
     if not gemm_route((kh, kw), stride, padding) or wq.shape[3] != x.shape[3]:
         raise NotImplementedError(
@@ -99,17 +117,25 @@ def int8_gemm_conv(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
             f"padding 1; got kernel {(kh, kw)}, stride {stride}, padding {padding!r}, "
             f"x {tuple(x.shape)}, wq {tuple(wq.shape)}"
         )
-    cout, k = wq.shape[0], kh * kw * wq.shape[3]
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"int8_gemm_conv takes float32 or bfloat16 maps on CUDA, not {x.dtype}")
+    cin, cout, k = x.shape[3], wq.shape[0], kh * kw * wq.shape[3]
     if k % 8 or cout % 8:
         raise ValueError(f"torch._int_mm needs Cin * kh * kw ({k}) and Cout ({cout}) "
                          "to be multiples of 8")
-    xq, sx = conv_ops.quantize_activation(x)
+    if x.shape[0] > 65535 or x.shape[1] * x.shape[2] * conv_ops._padded_channels(cin) >= 2**31:
+        raise ValueError(f"input too large for kernel 8's quantiser: {tuple(x.shape)}")
+    x = x.contiguous()
+    if x.data_ptr() % 16:  # kernel 8's passes read 16 bytes at a time
+        x = x.clone()
+    lib = conv_ops._library()
+    dev, stream = launch_target(x.device)
+    sx = conv_ops._scale_launch(lib, x, dev, stream)
+    xq = conv_ops._quantize_launch(lib, x, sx, dev, stream)[..., :cin]
     rows, (bsz, ho, wo) = _im2col_rows(xq, kh, stride, 0 if kh == 1 else 1)
     acc = _int_mm(rows, wq.reshape(cout, k)).view(bsz, ho, wo, cout)
-    y = acc.to(torch.float32) * (sx.view(-1, 1, 1, 1) * sw.to(torch.float32))
-    if b is not None:
-        y = y + b.to(torch.float32)
-    y = y.to(x.dtype)
+    y = epilogue_ops.gemm_epilogue(acc, sx, sw, b, dtype=x.dtype, bn=bn, relu=relu,
+                                   residual=residual)
     int8_gemm_conv.launches += 1
     return (y, acc) if return_acc else y
 

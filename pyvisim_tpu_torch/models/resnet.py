@@ -19,13 +19,18 @@ package's ``_block_conv`` routes it at trace time: int8
 channels, float otherwise; the 7x7 stem stays float. BatchNorm follows the
 dequantised output. On CUDA the int8 3x3 stride-1 convs run through kernel
 8 (no bias, no ReLU, no pool), the 1x1 and 3x3 stride-2 convs through
-``quant.int8_gemm_conv``; the int8 trunk runs channels-last.
+``quant.int8_gemm_conv``, whose epilogue takes the BatchNorm that follows
+and, by the conv's place in its block, ReLU or the residual add and ReLU
+(on the CPU the same call is the plain chain of torch passes); the int8
+trunk runs channels-last.
 
 Under ``profiling.record()`` the trunk opens the spans ``resnet.stem`` and
 ``resnet.layer1`` ... ``resnet.layer4``, and each call of an int8 trunk's
 block conv adds one to the counter of the route it takes:
 ``resnet.float_convs``, ``resnet.int8_k8`` (kernel 8) or
-``resnet.int8_gemm`` (``int8_gemm_conv``).
+``resnet.int8_gemm`` (``int8_gemm_conv``); a gemm-route call that takes
+its BatchNorm into the epilogue adds one to ``resnet.int8_gemm_fused``
+too.
 """
 from __future__ import annotations
 
@@ -38,6 +43,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import profiling
+from ..ops.cuda.int8_epilogue import batch_norm_tail, fuses_batch_norm
+from . import quant
 from .quant import QuantConv
 
 __all__ = ["ResNetTrunk", "RESNET_CFGS", "init_params", "params_from_jax"]
@@ -76,12 +83,30 @@ class FrozenBatchNorm2d(nn.BatchNorm2d):
         return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
                             False, 0.0, self.eps)
 
+    def batch_norm_args(self) -> tuple:
+        """``(weight, bias, running_mean, running_var, eps)``: the ``bn`` that
+        ``quant.int8_gemm_conv`` takes into its epilogue."""
+        return self.weight, self.bias, self.running_mean, self.running_var, self.eps
+
+
+def _bn_args(bn: FrozenBatchNorm2d | None) -> tuple | None:
+    """``bn``'s arguments for ``int8_epilogue.batch_norm_tail``, or None."""
+    return None if bn is None else bn.batch_norm_args()
+
 
 class BlockConv(QuantConv):
     """A bias-less block conv of the int8 trunk, routed by its input: int8
     through ``QuantConv`` where :meth:`uses_int8` holds, else a float conv
     with ``w_x``, the float32 master in the trunk's dtype. Each call counts
-    its route (see the module docstring)."""
+    its route (see the module docstring).
+
+    ``forward(x, bn, relu, residual)`` is ``relu(bn(conv(x)) [+ residual])``
+    (each part when asked). Where the conv takes the int8 gemm route and
+    ``int8_epilogue.fuses_batch_norm`` says the epilogue repeats the
+    trunk's BatchNorm on this map (on the CPU, where it is the plain chain
+    of the same passes, and for bf16 maps on CUDA), the BatchNorm, the
+    residual add and ReLU run in ``int8_gemm_conv``'s epilogue. Elsewhere
+    they run after the conv, a pass each."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int, stride: int,
                  padding: int, min_spatial: int, max_spatial: int):
@@ -89,6 +114,7 @@ class BlockConv(QuantConv):
         self.min_spatial, self.max_spatial = min_spatial, max_spatial
         self.register_buffer("w_x", torch.zeros(self.weight.shape), persistent=False)
         self._int8_counter = "resnet.int8_k8" if self._is_3x3_same else "resnet.int8_gemm"
+        self._gemm = quant.gemm_route(self.kernel_size, stride, padding)
         self._derive()
 
     @torch.no_grad()
@@ -101,12 +127,29 @@ class BlockConv(QuantConv):
         """The JAX package's predicate on an NCHW input."""
         return self.min_spatial <= x.shape[2] <= self.max_spatial and x.shape[1] >= 64
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.uses_int8(x):
-            profiling.count(self._int8_counter, 1)
-            return super().forward(x)
-        profiling.count("resnet.float_convs", 1)
-        return F.conv2d(x, self.w_x, None, self.stride, self.padding)
+    def forward(self, x: torch.Tensor, bn: FrozenBatchNorm2d | None = None, relu: bool = False,
+                residual: torch.Tensor | None = None) -> torch.Tensor:
+        if not self.uses_int8(x):
+            profiling.count("resnet.float_convs", 1)
+            return batch_norm_tail(F.conv2d(x, self.w_x, None, self.stride, self.padding),
+                                   _bn_args(bn), relu, residual)
+        profiling.count(self._int8_counter, 1)
+        if not (self._gemm and bn is not None and fuses_batch_norm(x.dtype, x.device)):
+            return batch_norm_tail(super().forward(x), _bn_args(bn), relu, residual)
+        profiling.count("resnet.int8_gemm_fused", 1)
+        y = quant.int8_gemm_conv(
+            x.permute(0, 2, 3, 1), self.wq, self.sw, self.bias, stride=self.stride,
+            padding=self.padding, bn=bn.batch_norm_args(), relu=relu,
+            residual=None if residual is None else residual.permute(0, 2, 3, 1))
+        return y.permute(0, 3, 1, 2)
+
+
+def _conv_bn(conv: nn.Module, bn: FrozenBatchNorm2d, x: torch.Tensor, relu: bool = False,
+             residual: torch.Tensor | None = None) -> torch.Tensor:
+    """``relu(bn(conv(x)) [+ residual])``; a ``BlockConv`` takes all of it."""
+    if isinstance(conv, BlockConv):
+        return conv(x, bn, relu, residual)
+    return batch_norm_tail(conv(x), _bn_args(bn), relu, residual)
 
 
 def _conv_factory(int8: bool, lo: int, hi: int):
@@ -133,10 +176,9 @@ class BasicBlock(nn.Module):
             self.downsample = nn.Sequential(conv(cin, width, 1, stride), FrozenBatchNorm2d(width))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.relu(self.bn1(self.conv1(x)))
-        y = self.bn2(self.conv2(y))
-        residual = x if self.downsample is None else self.downsample(x)
-        return torch.relu(y + residual)
+        residual = x if self.downsample is None else _conv_bn(*self.downsample, x)
+        y = _conv_bn(self.conv1, self.bn1, x, relu=True)
+        return _conv_bn(self.conv2, self.bn2, y, relu=True, residual=residual)
 
 
 class Bottleneck(nn.Module):
@@ -159,11 +201,11 @@ class Bottleneck(nn.Module):
                                             FrozenBatchNorm2d(4 * width))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.relu(self.bn1(self.conv1(x)))
-        y = torch.relu(self.bn2(self.conv2(y)))
-        y = self.bn3(self.conv3(y))
-        residual = x if self.downsample is None else self.downsample(x)
-        return torch.relu(y + residual)
+        # The shortcut first, so that conv3's epilogue can add it.
+        residual = x if self.downsample is None else _conv_bn(*self.downsample, x)
+        y = _conv_bn(self.conv1, self.bn1, x, relu=True)
+        y = _conv_bn(self.conv2, self.bn2, y, relu=True)
+        return _conv_bn(self.conv3, self.bn3, y, relu=True, residual=residual)
 
 
 class ResNetTrunk(nn.Module):

@@ -5,6 +5,7 @@ Each kernel's source is in ``pyvisim_tpu_torch/csrc``; it is built by
 wrapper, its launch count and its plain version: the wrapper takes the
 plain version for CPU tensors and launches the kernel for CUDA tensors.
 """
-from . import aggregate, conv, gmm_stats, ingest, lloyd_stats, sift_window
+from . import aggregate, conv, gmm_stats, ingest, int8_epilogue, lloyd_stats, sift_window
 
-__all__ = ["aggregate", "conv", "gmm_stats", "ingest", "lloyd_stats", "sift_window"]
+__all__ = ["aggregate", "conv", "gmm_stats", "ingest", "int8_epilogue", "lloyd_stats",
+           "sift_window"]

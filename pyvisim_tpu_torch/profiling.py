@@ -32,7 +32,8 @@ letterboxed ones where the host did), ``d2h_bytes``, ``sift.keypoints``
 ``ingest.on_card`` and ``ingest.on_host``, the SIFT images turned gray
 and letterboxed on the device and on the host, and ``resnet.float_convs``,
 ``resnet.int8_k8`` and ``resnet.int8_gemm``, an int8 ResNet trunk's block
-convs by the route each call took.
+convs by the route each call took, and ``resnet.int8_gemm_fused``, the
+gemm-route calls that took their BatchNorm into the epilogue.
 """
 from __future__ import annotations
 

@@ -13,6 +13,7 @@ import numpy as np
 
 from pyvisim_tpu_torch import index as tindex
 from pyvisim_tpu_torch import io as tio
+from pyvisim_tpu_torch import profiling
 from pyvisim_tpu_torch.models import QuantConv
 from pyvisim_tpu_torch.models import quant as tquant
 from pyvisim_tpu_torch.models import vgg as tvgg
@@ -26,6 +27,7 @@ from pyvisim_tpu_torch.ops.cuda import aggregate as tagg
 from pyvisim_tpu_torch.ops.cuda import conv as tconv
 from pyvisim_tpu_torch.ops.cuda import gmm_stats as tgs
 from pyvisim_tpu_torch.ops.cuda import ingest as tingest
+from pyvisim_tpu_torch.ops.cuda import int8_epilogue as tepi
 from pyvisim_tpu_torch.ops.cuda import lloyd_stats as tls
 from pyvisim_tpu_torch.ops.cuda import sift_window as tsw
 
@@ -1179,6 +1181,80 @@ def test_int8_gemm_route_bit_for_bit(cuda_device, shape, dtype):
         assert torch.equal(acc, want_acc) and torch.equal(got, want)
 
 
+# The gemm route's convs of ResNet50 at 448^2, two images: (B, H, W, Cin,
+# Cout, kernel, stride) of layer2's 1x1 conv1, layer3's 1x1/2 downsample
+# and layer3's 3x3/2 conv2.
+FUSED_ROUTES = {"1x1": (2, 56, 56, 512, 128, 1, 1), "1x1/2": (2, 56, 56, 512, 1024, 1, 2),
+                "3x3/2": (2, 56, 56, 256, 256, 3, 2)}
+
+
+def _frozen_bn(cout, device, seed):
+    """BatchNorm away from identity, as the ResNet cell draws it: weight
+    U(0.5, 1.5), bias N(0, 0.1), mean N(0, 0.1), variance U(0.5, 2)."""
+    g = torch.Generator().manual_seed(seed)
+    return (torch.rand(cout, generator=g).to(device) + 0.5,
+            0.1 * torch.randn(cout, generator=g).to(device),
+            0.1 * torch.randn(cout, generator=g).to(device),
+            1.5 * torch.rand(cout, generator=g).to(device) + 0.5, 1e-5)
+
+
+def _same_floats(got, want):
+    """Equal bits wherever ``want`` is a number, NaN where it is NaN."""
+    nan = torch.isnan(want)
+    if got.shape != want.shape or got.dtype != want.dtype or not torch.equal(torch.isnan(got), nan):
+        return False
+    ints = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+    return torch.equal(got[~nan].view(ints), want[~nan].view(ints))
+
+
+@pytest.mark.parametrize("mode", ["bn", "bn_relu", "bn_residual_relu"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("route", sorted(FUSED_ROUTES))
+def test_int8_gemm_epilogue_equals_the_unfused_chain(cuda_device, route, dtype, mode):
+    """int8_gemm_conv with BatchNorm (and ReLU, and the residual add) in its
+    epilogue against the same call without, followed by ``F.batch_norm``,
+    ``+ residual`` and ``torch.relu`` as separate passes on the card, bit
+    for bit; image 1 holds a NaN and comes out NaN in both. ``F.batch_norm``
+    runs ATen's own kernel on a channels-last bf16 map; a float32 map is
+    passed NCHW-contiguous, where it runs that kernel too (a channels-last
+    one goes to cuDNN, which rounds otherwise, so the trunk keeps float32
+    BatchNorm unfused)."""
+    shape = FUSED_ROUTES[route]
+    stride, pad = shape[6], shape[5] // 2
+    x, wq, sw = _gemm_inputs(shape, dtype, cuda_device, seed=11)
+    x[1, 3, 5, 7] = float("nan")
+    bn = _frozen_bn(shape[4], cuda_device, seed=12)
+    ho = (shape[1] + 2 * pad - shape[5]) // stride + 1
+    residual = None
+    if mode == "bn_residual_relu":
+        g = torch.Generator().manual_seed(13)
+        residual = torch.randn(shape[0], ho, ho, shape[4], generator=g).to(cuda_device, dtype)
+    relu = mode != "bn"
+    before = tepi.gemm_epilogue.launches
+    got = tquant.int8_gemm_conv(x, wq, sw, stride=stride, padding=pad, bn=bn, relu=relu,
+                                residual=residual)
+    assert tepi.gemm_epilogue.launches == before + 1
+    y = tquant.int8_gemm_conv(x, wq, sw, stride=stride, padding=pad).permute(0, 3, 1, 2)
+    if dtype == torch.float32:
+        y = y.contiguous()
+    weight, bias, mean, var, eps = bn
+    want = torch.nn.functional.batch_norm(y, mean, var, weight, bias, False, 0.0, eps)
+    if residual is not None:
+        want = want + residual.permute(0, 3, 1, 2)
+    if relu:
+        want = torch.relu(want)
+    want = want.permute(0, 2, 3, 1)
+    torch.cuda.synchronize()
+    assert _same_floats(got, want)
+    assert bool(torch.isnan(got[1]).all()) and not bool(torch.isnan(got[0]).any())
+    assert bool((got[0] < 0).any()) != relu
+    if dtype == torch.bfloat16:  # the plain version on the card (in float32 it reaches cuDNN)
+        _, acc = tquant.int8_gemm_conv(x, wq, sw, stride=stride, padding=pad, return_acc=True)
+        plain = tepi.gemm_epilogue_reference(acc, tconv.activation_scale(x), sw, dtype=dtype,
+                                             bn=bn, relu=relu, residual=residual)
+        assert _same_floats(got, plain)
+
+
 def test_quant_conv_routes_on_card_and_refuses_the_rest(cuda_device):
     """Each route of ResNet's convs through the module, bit for bit with
     the plain version on the card's own quantised weights."""
@@ -1199,6 +1275,20 @@ def test_quant_conv_routes_on_card_and_refuses_the_rest(cuda_device):
         layer = QuantConv(64, 64, k, stride, pad, relu=relu).to(cuda_device)
         with pytest.raises(NotImplementedError):
             layer(xc)
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64], ids=str)
+def test_int8_gemm_conv_refuses_other_dtypes_on_card(cuda_device, dtype):
+    """A float16 or float64 map is refused before kernel 8's quantiser
+    reads it (those launches read float32 or bf16 only) and before the
+    epilogue; the card is left sound."""
+    x = torch.randn(2, 14, 14, 64, device=cuda_device).to(dtype)
+    wq, sw = tconv.quantize_weight(torch.randn(64, 1, 1, 64, device=cuda_device))
+    before = (tquant.int8_gemm_conv.launches, tepi.gemm_epilogue.launches)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tquant.int8_gemm_conv(x, wq.contiguous(), sw, stride=1, padding=0)
+    torch.cuda.synchronize()
+    assert (tquant.int8_gemm_conv.launches, tepi.gemm_epilogue.launches) == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
@@ -1245,8 +1335,10 @@ def _route_counts():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 def test_int8_resnet50_on_card_matches_cpu(cuda_device, dtype):
     """resnet50 with every block conv int8 (window 1-64) at 64^2: 13 kernel-8
-    launches and 39 int8_gemm_conv calls a forward, layer 4's 2x2 maps of
-    8 rows included; cosine > 0.999 per image against the CPU. Each of the
+    launches and 39 int8_gemm_conv calls a forward, in bf16 each with its
+    BatchNorm in the epilogue (``resnet.int8_gemm_fused``; float32 keeps
+    the BatchNorm a pass of its own), layer 4's 2x2 maps of 8 rows
+    included; cosine > 0.999 per image against the CPU. Each of the
     52 int8 convs quantises on its own device (scales one ulp apart for a
     few % of images and channels, tests/test_torch_resnet.py), and a value
     at a rounding boundary moves one int8 step; over the depth that gave
@@ -1261,10 +1353,15 @@ def test_int8_resnet50_on_card_matches_cpu(cuda_device, dtype):
     with torch.no_grad():
         want = model.to(dtype)(x.to(dtype)).float()
         before = _route_counts()
-        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False), \
+                profiling.record() as rec:
             got = model.to(cuda_device)(x.to(cuda_device, dtype)).float().cpu()
     after = _route_counts()
     assert [a - b for a, b in zip(after, before)] == [13, 39]
+    counts = rec.counters()
+    assert [counts.get(k, 0) for k in ("resnet.int8_k8", "resnet.int8_gemm",
+                                       "resnet.int8_gemm_fused")] == [
+        13, 39, 39 if dtype == torch.bfloat16 else 0]
     cos = torch.nn.functional.cosine_similarity(got.flatten(1), want.flatten(1))
     assert bool((cos > 0.999).all()), cos
 

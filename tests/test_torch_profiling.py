@@ -31,9 +31,11 @@ RESNET_STAGES = ["resnet.stem", "resnet.layer1", "resnet.layer2", "resnet.layer3
 # The int8 ResNet50's block convs at 96^2 by route, per image batch: the
 # stem leaves 24^2, so layer1 (24), layer2 (24 -> 12) and layer3's first
 # block's convs at 12 run int8 (the 3x3 stride-1 convs through kernel 8:
-# 3 + 3; the rest through the gemm route: 7 + 10 + 3), and the 26 convs at
-# 6 and 3, below the window, run float.
-RESNET96_ROUTES = {"resnet.float_convs": 26, "resnet.int8_k8": 6, "resnet.int8_gemm": 20}
+# 3 + 3; the rest through the gemm route: 7 + 10 + 3, each with its
+# BatchNorm in the epilogue), and the 26 convs at 6 and 3, below the
+# window, run float.
+RESNET96_ROUTES = {"resnet.float_convs": 26, "resnet.int8_k8": 6, "resnet.int8_gemm": 20,
+                   "resnet.int8_gemm_fused": 20}
 
 
 @pytest.fixture(scope="module", autouse=True)

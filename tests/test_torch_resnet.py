@@ -17,10 +17,12 @@ from jax import lax
 from pyvisim_tpu.features import DeepConvFeature as JDeepConvFeature
 from pyvisim_tpu.models import quant as jquant
 from pyvisim_tpu.models import resnet as jresnet
+from pyvisim_tpu_torch import profiling
 from pyvisim_tpu_torch.features import DeepConvFeature
 from pyvisim_tpu_torch.models import quant as tquant
 from pyvisim_tpu_torch.models import resnet as tresnet
 from pyvisim_tpu_torch.ops.cuda import conv as tconv
+from pyvisim_tpu_torch.ops.cuda import int8_epilogue as tepi
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -182,6 +184,43 @@ def test_quant_conv_matches_jax_quant_conv(route):
     np.testing.assert_array_equal(acc.numpy(), _lax_sums(xq.numpy(), tmod.wq.numpy(), stride, pad))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("route", sorted(ROUTES))
+def test_int8_gemm_conv_on_the_cpu_is_the_plain_version(route, dtype):
+    """Without BatchNorm, int8_gemm_conv's CPU branch (plain quantiser,
+    exact conv, the epilogue's twin) equals quant_conv_reference bit for
+    bit, sums included, in any float dtype, and returns a contiguous map."""
+    k, stride, pad = ROUTES[route]
+    g = torch.Generator().manual_seed(11)
+    x = torch.randn(2, 9, 7, 64, generator=g).to(dtype)
+    wq, sw = tconv.quantize_weight(torch.randn(72, k, k, 64, generator=g) * 0.05)
+    b = torch.randn(72, generator=g)
+    y, acc = tquant.int8_gemm_conv(x, wq, sw, b, stride=stride, padding=pad, return_acc=True)
+    want, want_acc = tconv.quant_conv_reference(x, wq, sw, b, stride=stride, padding=pad,
+                                                return_acc=True)
+    assert y.dtype == dtype and y.is_contiguous()
+    assert torch.equal(y, want) and torch.equal(acc, want_acc)
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64], ids=str)
+def test_int8_gemm_conv_refuses_other_dtypes_off_the_cpu(dtype):
+    """Off the CPU the route takes float32 or bfloat16 maps only, and says
+    so before any launch (a meta tensor reaches the check and no kernel)."""
+    x = torch.empty((1, 8, 8, 64), dtype=dtype, device="meta")
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tquant.int8_gemm_conv(x, torch.empty((64, 1, 1, 64), dtype=torch.int8, device="meta"),
+                              torch.empty(64, device="meta"), stride=1, padding=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_fuses_batch_norm_by_dtype_and_device(device, dtype):
+    """The epilogue takes the BatchNorm on the CPU and for bf16 maps on the
+    card; float32 maps on the card keep F.batch_norm (cuDNN's rounding)."""
+    want = device == "cpu" or dtype == torch.bfloat16
+    assert tepi.fuses_batch_norm(dtype, torch.device(device)) is want
+
+
 def test_gemm_route_and_refusals():
     assert tquant.gemm_route(1, 1, "SAME") and tquant.gemm_route((1, 1), 2, "VALID")
     for args in [((3, 3), 1, 1), ((3, 3), 2, "SAME"), ((1, 1), 3, 0), ((7, 7), 2, 3),
@@ -309,3 +348,120 @@ def test_bf16_trunk_keeps_batch_norm_in_float32():
     jax_gap, port_gap = 1 - _cosines(jax_bf16, want), 1 - _cosines(port, want)
     assert (jax_gap > 0).all()
     assert (port_gap <= 1.1 * jax_gap).all(), (port_gap, jax_gap)
+
+
+def _frozen_bn(c, seed):
+    """BatchNorm away from identity, as the ResNet cell draws it."""
+    g = torch.Generator().manual_seed(seed)
+    bn = tresnet.FrozenBatchNorm2d(c)
+    bn.load_state_dict({"weight": torch.rand(c, generator=g) + 0.5,
+                        "bias": 0.1 * torch.randn(c, generator=g),
+                        "running_mean": 0.1 * torch.randn(c, generator=g),
+                        "running_var": 1.5 * torch.rand(c, generator=g) + 0.5,
+                        "num_batches_tracked": torch.tensor(0)})
+    return bn
+
+
+MODES = {"bn": (False, False), "bn_relu": (True, False), "bn_residual_relu": (True, True)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("mode", sorted(MODES))
+@pytest.mark.parametrize("route", sorted(ROUTES))
+def test_fused_gemm_call_equals_the_module_chain(route, mode, dtype):
+    """A gemm-route BlockConv called with its BatchNorm (and ReLU, and the
+    residual) takes them into int8_gemm_conv's epilogue, whose CPU twin
+    equals the chain of module passes bit for bit; the counter records the
+    fused call."""
+    k, stride, pad = ROUTES[route]
+    relu, with_residual = MODES[mode]
+    conv = tresnet.BlockConv(64, 72, k, stride, pad, 1, 64)
+    g = torch.Generator().manual_seed(k + stride)
+    conv.load_state_dict({"weight": torch.randn(72, 64, k, k, generator=g) * 0.05})
+    conv, bn = conv.to(dtype), _frozen_bn(72, seed=k).to(dtype)
+    x = torch.randn(2, 64, 9, 7, generator=g).to(dtype).contiguous(
+        memory_format=torch.channels_last)
+    ho, wo = (9 + 2 * pad - k) // stride + 1, (7 + 2 * pad - k) // stride + 1
+    residual = torch.randn(2, 72, ho, wo, generator=g).to(dtype) if with_residual else None
+    with torch.no_grad(), profiling.record() as rec:
+        got = conv(x, bn, relu, residual)
+    assert rec.counters() == {"resnet.int8_gemm": 1, "resnet.int8_gemm_fused": 1}
+    with torch.no_grad():
+        want = bn(tquant.QuantConv.forward(conv, x))
+        want = want + residual if with_residual else want
+        want = torch.relu(want) if relu else want
+    assert got.dtype == dtype and torch.equal(got, want)
+    # the same from the sums, through the epilogue's own twin
+    xh = x.permute(0, 2, 3, 1)
+    _, acc = tquant.int8_gemm_conv(xh, conv.wq, conv.sw, stride=stride, padding=pad,
+                                   return_acc=True)
+    plain = tepi.gemm_epilogue(acc, tconv.activation_scale(xh), conv.sw, dtype=dtype,
+                               bn=bn.batch_norm_args(), relu=relu,
+                               residual=None if residual is None else residual.permute(0, 2, 3, 1))
+    assert torch.equal(plain, want.permute(0, 2, 3, 1))
+
+
+def test_block_convs_off_the_gemm_route_keep_their_passes():
+    """Kernel 8's 3x3/1 conv and a conv outside the int8 window take the
+    BatchNorm after the conv, unfused and uncounted as fused."""
+    x = torch.randn(1, 64, 8, 8, generator=torch.Generator().manual_seed(3))
+    bn = _frozen_bn(64, seed=4)
+    for conv, route in ((tresnet.BlockConv(64, 64, 3, 1, 1, 1, 64), "resnet.int8_k8"),
+                        (tresnet.BlockConv(64, 64, 1, 1, 0, 16, 64), "resnet.float_convs")):
+        conv.load_state_dict({"weight": torch.randn(conv.weight.shape,
+                                                    generator=torch.Generator().manual_seed(5))})
+        with torch.no_grad(), profiling.record() as rec:
+            got = conv(x, bn, True)
+        assert rec.counters() == {route: 1}
+        with torch.no_grad():
+            assert torch.equal(got, torch.relu(bn(conv(x))))
+
+
+def _old_block_order(block, x):
+    """The blocks' forward before the shortcut moved first: the residual
+    computed last, through ``downsample`` as a Sequential."""
+    if isinstance(block, tresnet.Bottleneck):
+        y = torch.relu(block.bn1(block.conv1(x)))
+        y = torch.relu(block.bn2(block.conv2(y)))
+        y = block.bn3(block.conv3(y))
+    else:
+        y = torch.relu(block.bn1(block.conv1(x)))
+        y = block.bn2(block.conv2(y))
+    residual = x if block.downsample is None else block.downsample(x)
+    return torch.relu(y + residual)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("kind, cin, stride", [("bottleneck", 128, 2), ("bottleneck", 256, 1),
+                                               ("basic", 64, 2)])
+def test_blocks_with_the_shortcut_first_equal_the_old_order(kind, cin, stride, int8):
+    """Computing the shortcut (downsample) first and handing it to the last
+    conv's call changes no value, float or int8, with BatchNorm away from
+    identity."""
+    conv = tresnet._conv_factory(int8, 1, 64)
+    block_cls = tresnet.Bottleneck if kind == "bottleneck" else tresnet.BasicBlock
+    block = block_cls(cin, 64, stride, conv).eval()
+    g = torch.Generator().manual_seed(cin + stride)
+    for i, m in enumerate(block.modules()):
+        if isinstance(m, tresnet.FrozenBatchNorm2d):
+            m.load_state_dict(_frozen_bn(m.num_features, seed=i).state_dict())
+        elif isinstance(m, (torch.nn.Conv2d, tquant.QuantConv)):
+            m.load_state_dict({"weight": torch.randn(m.weight.shape, generator=g)
+                               / m.weight[0].numel() ** 0.5})
+    x = torch.randn(2, cin, 10, 10, generator=g).contiguous(memory_format=torch.channels_last)
+    with torch.no_grad():
+        assert torch.equal(block(x), _old_block_order(block, x))
+
+
+@pytest.mark.parametrize("cfg, n_stages", [("resnet18", 4), ("resnet50", 2)])
+def test_every_gemm_route_call_of_an_int8_trunk_takes_its_batch_norm(cfg, n_stages):
+    """Each gemm-route conv of an int8 trunk is followed by a BatchNorm, so
+    ``resnet.int8_gemm_fused`` equals ``resnet.int8_gemm``: ResNet18's
+    stride-2 conv1s and downsamples, every ResNet50 1x1 and 3x3/2 conv."""
+    model = tresnet.ResNetTrunk(cfg, n_stages, int8=True, int8_min_spatial=1,
+                                int8_max_spatial=64).eval()
+    with torch.no_grad(), profiling.record() as rec:
+        model(torch.rand(1, 3, 32, 32).contiguous(memory_format=torch.channels_last))
+    c = rec.counters()
+    assert c["resnet.int8_gemm_fused"] == c["resnet.int8_gemm"] == {"resnet18": 6,
+                                                                     "resnet50": 17}[cfg]
