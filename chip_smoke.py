@@ -155,7 +155,7 @@ Phases, each of which raises on a failed check:
    centers on each trunk, one kernel-1 launch per encode, and in int8 13
    kernel-8 launches and 39 ``int8_gemm_conv`` calls, each ending in one
    epilogue launch, the 39 in bf16 with their BatchNorm in it (counter
-   ``resnet.int8_gemm_fused``); self-retrieval on each; every kernel-8,
+   ``conv.int8_gemm_fused``); self-retrieval on each; every kernel-8,
    ``int8_gemm_conv`` and kernel-1 call of each int8 encode against its
    plain version on the path's arguments (int32 sums bit for bit, the
    bf16 encode's fused calls against the plain conv, BatchNorm, residual
@@ -3050,7 +3050,7 @@ def phase_resnet(conv, agg, ls, images):
         with profiling.record() as rec:
             vecs[name] = enc.encode(list(images))
         per_encode[name] = {k: w.launches - before[k] for k, w in wrappers.items()}
-        per_encode[name]["fused"] = rec.counters().get("resnet.int8_gemm_fused", 0)
+        per_encode[name]["fused"] = rec.counters().get("conv.int8_gemm_fused", 0)
         check(vecs[name].shape == (B, K * R50_D) and bool(np.isfinite(vecs[name]).all()),
               f"{name} ResNet50 VLAD encodings")
         self_retrieval(enc, images)
@@ -3586,9 +3586,8 @@ class MeshPathChecks:
         "pyvisim_tpu_torch.ops.sift": ("kernels", {"refine": "sift_refine",
                                                    "orientation": "sift_orientation",
                                                    "descriptor": "sift_descriptor"}),
-        "pyvisim_tpu_torch.models.vgg": ("conv_ops", {n: n for n in (
+        "pyvisim_tpu_torch.models.quant": ("conv_ops", {n: n for n in (
             "conv3x3_relu_maxpool", "conv3x3_relu_maxpool_q8", "conv3x3_q8")}),
-        "pyvisim_tpu_torch.models.quant": ("conv_ops", {"conv3x3_q8": "conv3x3_q8"}),
     }
 
     def __init__(self):
@@ -3951,7 +3950,7 @@ def int8_batch_probe(images: np.ndarray) -> dict:
         for i, m in enumerate(ext.model.features):
             if isinstance(m, torch.nn.Identity):
                 continue
-            route = "kernel 8" if m.uses_int8(x) else "kernel 7" if m.pool else "cudnn bf16"
+            route = {"int8_k8": "kernel 8", "k7": "kernel 7", "cudnn": "cudnn bf16"}[m.route(x)]
             out = m(x)
             halves = torch.cat([m(x[:half]), m(x[half:])])
             isolated, _ = reading(halves, out)

@@ -14,27 +14,25 @@ dict loads into a float and an int8 trunk alike. They stay float32 whatever
 values; the int8 weights and their scales are derived from them on every
 load and every move.
 
-On CUDA, the 3x3, stride-1, padding-1 conv runs through kernel 8. The
-other convs of ResNet's int8 blocks (1x1 at stride 1 or 2, 3x3 at stride 2
-with padding 1) run through :func:`int8_gemm_conv`, an exact int32 product
-on ``torch._int_mm`` between kernel 8's quantiser and a hand-written
-epilogue that can take the BatchNorm, residual add and ReLU after the conv:
-JAX computes them with XLA's ``lax.conv_general_dilated``, outside any
-Pallas kernel. Every other shape raises on CUDA.
+:class:`QuantConv` is always int8. :class:`RoutedConv`, the conv of both
+int8 trunks, decides on each call whether it runs int8 or float, through
+which kernel, and what fuses into it.
 """
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import profiling
 from ..ops.cuda import conv as conv_ops
 from ..ops.cuda import int8_epilogue as epilogue_ops
 from ..ops.cuda.aggregate import launch_target
 
-__all__ = ["QuantConv", "int8_gemm_conv", "gemm_route"]
+__all__ = ["QuantConv", "RoutedConv", "int8_gemm_conv", "gemm_route", "lecun_normal_"]
 
 
 def _pair(v) -> tuple[int, int]:
@@ -151,9 +149,9 @@ class QuantConv(nn.Module):
     "VALID", an int or an (h, w) pair) run through the plain version. On
     CUDA the 3x3, stride-1, SAME (or padding 1) conv runs through kernel 8
     (``ops.cuda.conv.conv3x3_q8``), the convs of :func:`gemm_route`
-    through :func:`int8_gemm_conv` (without ReLU); other shapes raise
-    ``NotImplementedError``. ``relu`` applies ReLU in the kernel's epilogue,
-    which equals ``relu(QuantConv(...)(x))``.
+    through :func:`int8_gemm_conv` (without ReLU; JAX leaves them to XLA);
+    other shapes raise ``NotImplementedError``. ``relu`` applies ReLU in
+    the kernel's epilogue, which equals ``relu(QuantConv(...)(x))``.
     """
 
     # Float32 masters; everything else is derived from them by _derive.
@@ -183,6 +181,11 @@ class QuantConv(nn.Module):
             persistent=False,
         )
         self.register_buffer("sw", torch.ones(out_channels), persistent=False)
+        # The int8 route of this geometry: kernel 8, the gemm route (without
+        # ReLU) or the plain version, which runs on the CPU only.
+        same = (kh, kw) == (3, 3) and stride == 1 and padding in ("SAME", 1, (1, 1), [1, 1])
+        self._int8_route = ("int8_k8" if same else "int8_gemm"
+                            if gemm_route((kh, kw), stride, padding) and not relu else "int8_plain")
         self._derive()
 
     @torch.no_grad()
@@ -206,24 +209,27 @@ class QuantConv(nn.Module):
         super()._load_from_state_dict(*args, **kwargs)
         self._derive()
 
-    @property
-    def _is_3x3_same(self) -> bool:
-        return (self.kernel_size == (3, 3) and self.stride == 1
-                and self.padding in ("SAME", 1, (1, 1), [1, 1]))
-
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._int8(x, self.relu)
+
+    def _int8(self, x: torch.Tensor, relu: bool, bn=None,
+              residual: torch.Tensor | None = None) -> torch.Tensor:
+        """The int8 conv of NCHW ``x`` on this geometry's route, with ReLU in
+        its epilogue if ``relu``; the gemm route's also takes ``bn`` and the
+        NCHW ``residual``."""
         xh = x.permute(0, 2, 3, 1)
-        if self._is_3x3_same:
+        if self._int8_route == "int8_k8":
             if x.device.type == "cpu":
                 xh = xh.contiguous()
-            y = conv_ops.conv3x3_q8(xh, self.wq, self.sw, self.bias, relu=self.relu)
-        elif gemm_route(self.kernel_size, self.stride, self.padding) and not self.relu:
+            y = conv_ops.conv3x3_q8(xh, self.wq, self.sw, self.bias, relu=relu)
+        elif self._int8_route == "int8_gemm":
             y = int8_gemm_conv(xh, self.wq, self.sw, self.bias, stride=self.stride,
-                               padding=self.padding)
+                               padding=self.padding, bn=bn, relu=relu,
+                               residual=None if residual is None else residual.permute(0, 2, 3, 1))
         elif x.device.type == "cpu":
             y = conv_ops.quant_conv_reference(
                 xh.contiguous(), self.wq, self.sw, self.bias, stride=self.stride,
-                padding=self.padding, relu=self.relu,
+                padding=self.padding, relu=relu,
             )
         else:
             raise NotImplementedError(
@@ -238,3 +244,114 @@ class QuantConv(nn.Module):
         return (f"{self.in_channels}, {self.out_channels}, kernel_size={self.kernel_size}, "
                 f"stride={self.stride}, padding={self.padding!r}, "
                 f"bias={self.bias is not None}, relu={self.relu}")
+
+
+class RoutedConv(QuantConv):
+    """A conv of an int8 trunk, routed on each call by its input as the
+    JAX package routes it at trace time: int8 where :meth:`uses_int8`
+    holds, float otherwise. ``pool`` fuses VGG's ReLU and 2x2 max pool into
+    a 3x3 stride-1 conv. A call adds one to ``conv.<route>`` (:meth:`route`):
+
+    - ``int8_k8``: 3x3 at stride 1 through kernel 8, pooled or not;
+    - ``int8_gemm``: 1x1, and 3x3 at stride 2, through :func:`int8_gemm_conv`;
+    - ``int8_plain``: another int8 geometry, the plain version (CPU only);
+    - ``k7``: float with the pool, kernel 7 with the float32 bias;
+    - ``cudnn``: float without it, ``F.conv2d`` on ``w_x`` and ``bias_x``.
+
+    ``forward(x, bn, relu, residual)`` is ``relu(bn(conv(x)) [+ residual])``,
+    each part when asked, ``bn`` a ``resnet.FrozenBatchNorm2d``. Where
+    ``int8_epilogue.fuses_batch_norm`` holds, the gemm route's epilogue
+    takes all of it (and the call adds to ``conv.int8_gemm_fused``); else
+    the conv's own kernel takes a ReLU that nothing else follows, and the
+    rest runs after it, a torch pass each.
+
+    ``w_x (Cout, kh, kw, Cin)`` and ``bias_x`` are the float weight and
+    bias in the trunk's dtype, derived from the float32 masters as
+    ``wq``/``sw`` are, so ``Module.to(dtype)`` sets that dtype.
+    """
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
+                 stride: int = 1, padding: int = 1, bias: bool = True, relu: bool = False, *,
+                 pool: bool = False, min_spatial: int, max_spatial: int):
+        super().__init__(in_channels, out_channels, kernel_size, stride, padding, bias,
+                         relu or pool)
+        if pool and self._int8_route != "int8_k8":
+            raise ValueError("pool fuses into a 3x3 stride-1 conv with padding 1 only")
+        self.pool = pool
+        self.min_spatial, self.max_spatial = min_spatial, max_spatial
+        self.register_buffer("w_x", torch.zeros(out_channels, *self.kernel_size, in_channels),
+                             persistent=False)
+        self.register_buffer("bias_x", torch.zeros(out_channels) if bias else None,
+                             persistent=False)
+        self._derive()
+
+    @torch.no_grad()
+    def _derive(self) -> None:
+        super()._derive()
+        if getattr(self, "w_x", None) is not None:
+            dtype = self.w_x.dtype
+            self.w_x = self.weight.permute(0, 2, 3, 1).to(dtype).contiguous()
+            self.bias_x = None if self.bias is None else self.bias.to(dtype)
+
+    def uses_int8(self, x: torch.Tensor) -> bool:
+        """The JAX package's predicate on an NCHW input."""
+        return self.min_spatial <= x.shape[2] <= self.max_spatial and x.shape[1] >= 64
+
+    def route(self, x: torch.Tensor) -> str:
+        """The route of a call on the NCHW input ``x`` (see the class)."""
+        if self.uses_int8(x):
+            return self._int8_route
+        return "k7" if self.pool else "cudnn"
+
+    def forward(self, x: torch.Tensor, bn: nn.Module | None = None, relu: bool = False,
+                residual: torch.Tensor | None = None) -> torch.Tensor:
+        relu = relu or self.relu
+        route = self.route(x)
+        profiling.count("conv." + route, 1)
+        if route == "k7":
+            y = conv_ops.conv3x3_relu_maxpool(x.permute(0, 2, 3, 1), self.w_x, self.bias)
+            return y.permute(0, 3, 1, 2)
+        if self.pool:
+            y = conv_ops.conv3x3_relu_maxpool_q8(x.permute(0, 2, 3, 1), self.wq, self.sw, self.bias)
+            return y.permute(0, 3, 1, 2)
+        bn = None if bn is None else bn.batch_norm_args()
+        if route == "int8_gemm" and bn is not None and epilogue_ops.fuses_batch_norm(
+                x.dtype, x.device):
+            profiling.count("conv.int8_gemm_fused", 1)
+            return self._int8(x, relu, bn, residual)
+        if bn is None and residual is None:  # the conv's own epilogue takes the ReLU
+            return self._conv(x, route, relu)
+        # The conv's map is passed as a temporary, so that it is dropped as
+        # soon as BatchNorm has read it.
+        return epilogue_ops.batch_norm_tail(self._conv(x, route, False), bn, relu, residual)
+
+    def _conv(self, x: torch.Tensor, route: str, relu: bool) -> torch.Tensor:
+        """The conv alone on ``route`` (cuDNN or int8), with ReLU if ``relu``."""
+        if route != "cudnn":
+            return self._int8(x, relu)
+        y = F.conv2d(x, self.w_x.permute(0, 3, 1, 2), self.bias_x, self.stride, self.padding)
+        return torch.relu_(y) if relu else y
+
+    def extra_repr(self) -> str:
+        return f"{super().extra_repr()}, pool={self.pool}"
+
+
+@torch.no_grad()
+def lecun_normal_(module: nn.Module, generator: torch.Generator | None = None) -> None:
+    """Draw every conv and dense kernel of ``module``, in module order, as
+    Flax's ``nn.Conv`` and ``nn.Dense`` draw it (lecun-normal: a normal
+    truncated at +-2 std, scaled to variance 1/fan_in) from ``generator``
+    (seed 0 when None) on the CPU, and zero their biases; an int8 conv
+    requantises."""
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    for m in module.modules():
+        if isinstance(m, (nn.Conv2d, nn.Linear, QuantConv)):
+            std = math.sqrt(1.0 / m.weight[0].numel()) / 0.87962566103423978
+            w = torch.empty(m.weight.shape)
+            nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
+            m.weight.copy_(w * std)
+            if m.bias is not None:
+                m.bias.zero_()
+            if isinstance(m, QuantConv):
+                m._derive()

@@ -12,29 +12,20 @@ its running statistics with eps 1e-5, as the JAX trunk's
 ``use_running_average=True`` does, whatever ``train()`` says. The stem's
 ``-inf`` pad and VALID 3x3/2 max pool are ``max_pool2d(3, 2, padding=1)``.
 
-With ``int8=True`` each block conv is routed at run time as the JAX
-package's ``_block_conv`` routes it at trace time: int8
-(:class:`~.quant.QuantConv`) where its input height lies in
-[``int8_min_spatial``, ``int8_max_spatial``] and it has >= 64 input
-channels, float otherwise; the 7x7 stem stays float. BatchNorm follows the
-dequantised output. On CUDA the int8 3x3 stride-1 convs run through kernel
-8 (no bias, no ReLU, no pool), the 1x1 and 3x3 stride-2 convs through
-``quant.int8_gemm_conv``, whose epilogue takes the BatchNorm that follows
-and, by the conv's place in its block, ReLU or the residual add and ReLU
-(on the CPU the same call is the plain chain of torch passes); the int8
-trunk runs channels-last.
+With ``int8=True`` each block conv is a :class:`~.quant.RoutedConv`,
+routed at run time as the JAX package's ``_block_conv`` routes it at trace
+time: int8 where its input height lies in [``int8_min_spatial``,
+``int8_max_spatial``] and it has >= 64 input channels, float otherwise;
+the 7x7 stem stays float. Each block conv is called with the BatchNorm,
+ReLU and residual add that follow it, and takes what its route fuses (see
+``RoutedConv``); the int8 trunk runs channels-last.
 
 Under ``profiling.record()`` the trunk opens the spans ``resnet.stem`` and
-``resnet.layer1`` ... ``resnet.layer4``, and each call of an int8 trunk's
-block conv adds one to the counter of the route it takes:
-``resnet.float_convs``, ``resnet.int8_k8`` (kernel 8) or
-``resnet.int8_gemm`` (``int8_gemm_conv``); a gemm-route call that takes
-its BatchNorm into the epilogue adds one to ``resnet.int8_gemm_fused``
-too.
+``resnet.layer1`` ... ``resnet.layer4``; its block convs count their routes
+(``conv.*``).
 """
 from __future__ import annotations
 
-import math
 from typing import Dict, Mapping
 
 import numpy as np
@@ -43,9 +34,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import profiling
-from ..ops.cuda.int8_epilogue import batch_norm_tail, fuses_batch_norm
-from . import quant
-from .quant import QuantConv
+from ..ops.cuda.int8_epilogue import batch_norm_tail
+from .quant import RoutedConv, lecun_normal_
 
 __all__ = ["ResNetTrunk", "RESNET_CFGS", "init_params", "params_from_jax"]
 
@@ -80,84 +70,28 @@ class FrozenBatchNorm2d(nn.BatchNorm2d):
         return self
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
-                            False, 0.0, self.eps)
+        return batch_norm_tail(x, self.batch_norm_args())
 
     def batch_norm_args(self) -> tuple:
         """``(weight, bias, running_mean, running_var, eps)``: the ``bn`` that
-        ``quant.int8_gemm_conv`` takes into its epilogue."""
+        ``int8_epilogue.batch_norm_tail`` and ``quant.int8_gemm_conv`` take."""
         return self.weight, self.bias, self.running_mean, self.running_var, self.eps
-
-
-def _bn_args(bn: FrozenBatchNorm2d | None) -> tuple | None:
-    """``bn``'s arguments for ``int8_epilogue.batch_norm_tail``, or None."""
-    return None if bn is None else bn.batch_norm_args()
-
-
-class BlockConv(QuantConv):
-    """A bias-less block conv of the int8 trunk, routed by its input: int8
-    through ``QuantConv`` where :meth:`uses_int8` holds, else a float conv
-    with ``w_x``, the float32 master in the trunk's dtype. Each call counts
-    its route (see the module docstring).
-
-    ``forward(x, bn, relu, residual)`` is ``relu(bn(conv(x)) [+ residual])``
-    (each part when asked). Where the conv takes the int8 gemm route and
-    ``int8_epilogue.fuses_batch_norm`` says the epilogue repeats the
-    trunk's BatchNorm on this map (on the CPU, where it is the plain chain
-    of the same passes, and for bf16 maps on CUDA), the BatchNorm, the
-    residual add and ReLU run in ``int8_gemm_conv``'s epilogue. Elsewhere
-    they run after the conv, a pass each."""
-
-    def __init__(self, in_channels: int, out_channels: int, kernel_size: int, stride: int,
-                 padding: int, min_spatial: int, max_spatial: int):
-        super().__init__(in_channels, out_channels, kernel_size, stride, padding, bias=False)
-        self.min_spatial, self.max_spatial = min_spatial, max_spatial
-        self.register_buffer("w_x", torch.zeros(self.weight.shape), persistent=False)
-        self._int8_counter = "resnet.int8_k8" if self._is_3x3_same else "resnet.int8_gemm"
-        self._gemm = quant.gemm_route(self.kernel_size, stride, padding)
-        self._derive()
-
-    @torch.no_grad()
-    def _derive(self) -> None:
-        super()._derive()
-        if getattr(self, "w_x", None) is not None:
-            self.w_x = self.weight.to(self.w_x.dtype)
-
-    def uses_int8(self, x: torch.Tensor) -> bool:
-        """The JAX package's predicate on an NCHW input."""
-        return self.min_spatial <= x.shape[2] <= self.max_spatial and x.shape[1] >= 64
-
-    def forward(self, x: torch.Tensor, bn: FrozenBatchNorm2d | None = None, relu: bool = False,
-                residual: torch.Tensor | None = None) -> torch.Tensor:
-        if not self.uses_int8(x):
-            profiling.count("resnet.float_convs", 1)
-            return batch_norm_tail(F.conv2d(x, self.w_x, None, self.stride, self.padding),
-                                   _bn_args(bn), relu, residual)
-        profiling.count(self._int8_counter, 1)
-        if not (self._gemm and bn is not None and fuses_batch_norm(x.dtype, x.device)):
-            return batch_norm_tail(super().forward(x), _bn_args(bn), relu, residual)
-        profiling.count("resnet.int8_gemm_fused", 1)
-        y = quant.int8_gemm_conv(
-            x.permute(0, 2, 3, 1), self.wq, self.sw, self.bias, stride=self.stride,
-            padding=self.padding, bn=bn.batch_norm_args(), relu=relu,
-            residual=None if residual is None else residual.permute(0, 2, 3, 1))
-        return y.permute(0, 3, 1, 2)
 
 
 def _conv_bn(conv: nn.Module, bn: FrozenBatchNorm2d, x: torch.Tensor, relu: bool = False,
              residual: torch.Tensor | None = None) -> torch.Tensor:
-    """``relu(bn(conv(x)) [+ residual])``; a ``BlockConv`` takes all of it."""
-    if isinstance(conv, BlockConv):
+    """``relu(bn(conv(x)) [+ residual])``; a ``RoutedConv`` takes all of it."""
+    if isinstance(conv, RoutedConv):
         return conv(x, bn, relu, residual)
-    return batch_norm_tail(conv(x), _bn_args(bn), relu, residual)
+    return batch_norm_tail(conv(x), bn.batch_norm_args(), relu, residual)
 
 
 def _conv_factory(int8: bool, lo: int, hi: int):
     def conv(cin: int, cout: int, k: int, stride: int = 1) -> nn.Module:
-        pad = k // 2
         if int8:
-            return BlockConv(cin, cout, k, stride, pad, lo, hi)
-        return nn.Conv2d(cin, cout, k, stride, pad, bias=False)
+            return RoutedConv(cin, cout, k, stride, k // 2, bias=False, min_spatial=lo,
+                              max_spatial=hi)
+        return nn.Conv2d(cin, cout, k, stride, k // 2, bias=False)
 
     return conv
 
@@ -261,19 +195,9 @@ class ResNetTrunk(nn.Module):
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
-        if generator is None:
-            generator = torch.Generator().manual_seed(0)
+        lecun_normal_(self, generator)
         for m in self.modules():
-            if isinstance(m, (nn.Conv2d, QuantConv)):
-                fan_in = m.weight[0].numel()
-                # Flax lecun_normal: variance 1/fan_in after truncation at +-2 std.
-                std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-                w = torch.empty(m.weight.shape)
-                nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
-                m.weight.copy_(w * std)
-                if isinstance(m, QuantConv):
-                    m._derive()
-            elif isinstance(m, nn.BatchNorm2d):
+            if isinstance(m, nn.BatchNorm2d):
                 m.reset_parameters()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

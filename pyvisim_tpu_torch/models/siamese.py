@@ -22,7 +22,6 @@ computes the convs and the head in bf16 with float32 parameters, as Flax's
 from __future__ import annotations
 
 import functools
-import math
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional
 
@@ -34,6 +33,7 @@ from torch.func import functional_call
 
 from .._config import full_f32, resolve_device
 from ..losses import margin_softmax_loss, nt_xent_loss
+from .quant import lecun_normal_
 from .vgg import VGG_CFGS
 
 __all__ = [
@@ -49,14 +49,6 @@ __all__ = [
     "embed",
     "params_from_jax",
 ]
-
-
-def _lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
-    """Flax's lecun_normal: variance 1/fan_in after truncation at +-2 std."""
-    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-    t = torch.empty(w.shape)
-    nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    w.copy_(t * std)
 
 
 class GeMPool(nn.Module):
@@ -127,10 +119,7 @@ class SiameseEmbedder(nn.Module):
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
         if generator is None:
             generator = torch.Generator().manual_seed(0)
-        for m in self.modules():
-            if isinstance(m, (nn.Conv2d, nn.Linear)):
-                _lecun_normal_(m.weight, m.weight[0].numel(), generator)
-                m.bias.zero_()
+        lecun_normal_(self, generator)
         self.gem.p.fill_(3.0)
         if self.n_classes is not None:
             self.class_weights.copy_(

@@ -11,26 +11,23 @@ loads into it as it is. Weights from the JAX package cross through
 :func:`params_from_jax`.
 
 With ``int8=True`` the trunk routes its convs as the JAX package's does
-(``pyvisim_tpu/models/vgg.py:95-99``): int8 where the conv's input height
-lies in [``int8_min_spatial``, ``int8_max_spatial``] and it has >= 64
+(``pyvisim_tpu/models/vgg.py:95-99``): each conv is a
+:class:`~.quant.RoutedConv` with its ReLU, int8 where the conv's input
+height lies in [``int8_min_spatial``, ``int8_max_spatial``] and it has >= 64
 channels. Each conv that a pool follows runs fused with its ReLU and pool:
-kernel 8 (``ops.cuda.conv.conv3x3_relu_maxpool_q8``) where it is int8,
-kernel 7 (``conv3x3_relu_maxpool``) otherwise. The other int8 convs run
-through :class:`~.quant.QuantConv`, the other float convs through cuDNN.
-The int8 trunk runs channels-last in every dtype.
+kernel 8 where it is int8, kernel 7 otherwise. The other int8 convs run
+through kernel 8 alone, the other float convs through cuDNN. The int8
+trunk runs channels-last in every dtype.
 """
 from __future__ import annotations
 
-import math
 from typing import Dict, Mapping, Sequence
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from ..ops.cuda import conv as conv_ops
-from .quant import QuantConv
+from .quant import RoutedConv, lecun_normal_
 
 __all__ = [
     "VGG_CFGS",
@@ -73,60 +70,6 @@ def _conv_feature_indices(cfg_name: str, layer_index: int):
     return out
 
 
-class Int8TrunkConv(QuantConv):
-    """One 3x3 conv of the int8 trunk with its ReLU, and with the 2x2 pool
-    that follows it when ``pool``; routed at run time by its input, as the
-    JAX package routes it at trace time:
-
-    - int8 (input height in [``min_spatial``, ``max_spatial``], >= 64
-      channels): kernel 8 with the pool, else ``QuantConv`` (kernel 8
-      without it);
-    - float with the pool: kernel 7, in the input's dtype with the float32
-      bias;
-    - float without it: cuDNN, then an in-place ReLU, with the bias in the
-      input's dtype, as ``nn.Conv2d`` adds it.
-
-    ``w_x (Cout, 3, 3, Cin)`` and ``bias_x`` are the float weight and bias
-    in the trunk's dtype, derived like ``wq``/``sw`` from the float32
-    masters, so ``Module.to(dtype)`` sets that dtype.
-    """
-
-    def __init__(self, in_channels: int, out_channels: int, pool: bool,
-                 min_spatial: int, max_spatial: int):
-        super().__init__(in_channels, out_channels, 3, 1, "SAME", relu=True)
-        self.pool = pool
-        self.min_spatial, self.max_spatial = min_spatial, max_spatial
-        self.register_buffer("w_x", torch.zeros(out_channels, 3, 3, in_channels), persistent=False)
-        self.register_buffer("bias_x", torch.zeros(out_channels), persistent=False)
-        self._derive()
-
-    @torch.no_grad()
-    def _derive(self) -> None:
-        super()._derive()
-        if getattr(self, "w_x", None) is not None:
-            dtype = self.w_x.dtype
-            self.w_x = self.weight.permute(0, 2, 3, 1).to(dtype).contiguous()
-            self.bias_x = self.bias.to(dtype)
-
-    def uses_int8(self, x: torch.Tensor) -> bool:
-        """The JAX package's predicate on an NCHW input."""
-        return self.min_spatial <= x.shape[2] <= self.max_spatial and x.shape[1] >= 64
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.uses_int8(x):
-            if not self.pool:
-                return super().forward(x)
-            y = conv_ops.conv3x3_relu_maxpool_q8(x.permute(0, 2, 3, 1), self.wq, self.sw, self.bias)
-        elif self.pool:
-            y = conv_ops.conv3x3_relu_maxpool(x.permute(0, 2, 3, 1), self.w_x, self.bias)
-        else:
-            return torch.relu_(F.conv2d(x, self.w_x.permute(0, 3, 1, 2), self.bias_x, padding=1))
-        return y.permute(0, 3, 1, 2)
-
-    def extra_repr(self) -> str:
-        return f"{super().extra_repr()}, pool={self.pool}"
-
-
 class VGGConvFeatures(nn.Module):
     """The convolutional trunk of a VGG network, truncated at ``layer_index``.
 
@@ -138,7 +81,7 @@ class VGGConvFeatures(nn.Module):
     ``int8``: route the middle convs through int8 (see the module
     docstring); ``int8_min_spatial``/``int8_max_spatial`` bound the input
     height of an int8 conv, as in the JAX package. Each conv position then
-    holds an :class:`Int8TrunkConv` and the ReLU and pool positions it fuses
+    holds a :class:`~.quant.RoutedConv` and the ReLU and pool positions it fuses
     hold ``nn.Identity``, so the ``features.{i}`` keys stay torchvision's.
     The input must be channels-last on CUDA. ``int8=False`` is the plain
     cuDNN trunk.
@@ -177,7 +120,9 @@ class VGGConvFeatures(nn.Module):
             if int8:
                 # The trunk ends at its target conv, before any pool after it.
                 pool = conv_i != target and pos + 1 < len(cfg) and cfg[pos + 1] == "M"
-                layers.append(Int8TrunkConv(in_ch, item, pool, int8_min_spatial, int8_max_spatial))
+                layers.append(RoutedConv(in_ch, item, relu=True, pool=pool,
+                                         min_spatial=int8_min_spatial,
+                                         max_spatial=int8_max_spatial))
                 layers.append(nn.Identity())
             else:
                 layers.append(nn.Conv2d(in_ch, item, 3, padding=1))
@@ -189,21 +134,8 @@ class VGGConvFeatures(nn.Module):
         self.features = nn.Sequential(*layers)
         self.reset_parameters(generator)
 
-    @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
-        if generator is None:
-            generator = torch.Generator().manual_seed(0)
-        for m in self.features:
-            if isinstance(m, (nn.Conv2d, QuantConv)):
-                fan_in = m.weight[0].numel()
-                # Flax lecun_normal: variance 1/fan_in after truncation at +-2 std.
-                std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-                w = torch.empty(m.weight.shape)
-                nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
-                m.weight.copy_(w * std)
-                m.bias.zero_()
-                if isinstance(m, QuantConv):
-                    m._derive()
+        lecun_normal_(self, generator)
 
     def load_params(self, state_dict: Mapping) -> None:
         """Load a torchvision-named state dict (tensors or numpy arrays):

@@ -30,10 +30,11 @@ they were copied up: raw pixels where the device turns them gray,
 letterboxed ones where the host did), ``d2h_bytes``, ``sift.keypoints``
 (valid keypoints), ``sift.slots`` (keypoint slots), and
 ``ingest.on_card`` and ``ingest.on_host``, the SIFT images turned gray
-and letterboxed on the device and on the host, and ``resnet.float_convs``,
-``resnet.int8_k8`` and ``resnet.int8_gemm``, an int8 ResNet trunk's block
-convs by the route each call took, and ``resnet.int8_gemm_fused``, the
-gemm-route calls that took their BatchNorm into the epilogue.
+and letterboxed on the device and on the host, and ``conv.cudnn``,
+``conv.k7``, ``conv.int8_k8``, ``conv.int8_gemm`` and ``conv.int8_plain``,
+the convs of an int8 trunk (``models.quant.RoutedConv``) by the route
+each call took, and ``conv.int8_gemm_fused``, the gemm-route calls that
+took their BatchNorm into the epilogue.
 """
 from __future__ import annotations
 

@@ -16,7 +16,8 @@ from benchmark import images, resnet_roofline, run
 from benchmark.reference import resnet50_int8 as ref
 from benchmark.reference import vlad as ref_vlad
 from benchmark.systems import resnet50_int8 as system
-from pyvisim_tpu_torch.models.resnet import BlockConv, ResNetTrunk
+from pyvisim_tpu_torch.models.quant import RoutedConv
+from pyvisim_tpu_torch.models.resnet import ResNetTrunk
 
 SEED = 2**31 + 101
 SIDE = 96
@@ -135,7 +136,7 @@ def test_a_reference_without_one_shortcut_fails(cfg, weights, imgs, program_desc
 
 def _program_routes(side: int) -> dict:
     """``{conv name: route}`` of the program's int8 trunk at ``side``: each
-    BlockConv's ``uses_int8`` on its input's shape (from the float trunk run
+    RoutedConv's ``uses_int8`` on its input's shape (from the float trunk run
     on the meta device), the stem bfloat16."""
     shapes = {}
 
@@ -152,7 +153,7 @@ def _program_routes(side: int) -> dict:
         h.remove()
     out = {"conv1": "bfloat16"}
     for n, m in ResNetTrunk("resnet50", int8=True).named_modules():
-        if isinstance(m, BlockConv):
+        if isinstance(m, RoutedConv):
             int8 = m.uses_int8(torch.empty(shapes[n], device="meta"))
             out[n] = "int8" if int8 else "bfloat16"
     return out

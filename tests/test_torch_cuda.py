@@ -1336,7 +1336,7 @@ def _route_counts():
 def test_int8_resnet50_on_card_matches_cpu(cuda_device, dtype):
     """resnet50 with every block conv int8 (window 1-64) at 64^2: 13 kernel-8
     launches and 39 int8_gemm_conv calls a forward, in bf16 each with its
-    BatchNorm in the epilogue (``resnet.int8_gemm_fused``; float32 keeps
+    BatchNorm in the epilogue (``conv.int8_gemm_fused``; float32 keeps
     the BatchNorm a pass of its own), layer 4's 2x2 maps of 8 rows
     included; cosine > 0.999 per image against the CPU. Each of the
     52 int8 convs quantises on its own device (scales one ulp apart for a
@@ -1359,8 +1359,8 @@ def test_int8_resnet50_on_card_matches_cpu(cuda_device, dtype):
     after = _route_counts()
     assert [a - b for a, b in zip(after, before)] == [13, 39]
     counts = rec.counters()
-    assert [counts.get(k, 0) for k in ("resnet.int8_k8", "resnet.int8_gemm",
-                                       "resnet.int8_gemm_fused")] == [
+    assert [counts.get(k, 0) for k in ("conv.int8_k8", "conv.int8_gemm",
+                                       "conv.int8_gemm_fused")] == [
         13, 39, 39 if dtype == torch.bfloat16 else 0]
     cos = torch.nn.functional.cosine_similarity(got.flatten(1), want.flatten(1))
     assert bool((cos > 0.999).all()), cos

@@ -3,7 +3,7 @@ gates: the counterparts of tests/test_features_deep.py's int8 tests.
 
 At 64^2 the trunk routes conv1, conv6 and conv9 through kernel 7 (float
 conv + ReLU + pool), conv3 through kernel 8 (int8 conv + ReLU + pool) and
-conv2 through QuantConv; on the CPU each takes its plain version. The
+conv2 through kernel 8 alone; on the CPU each takes its plain version. The
 quality gates run at 112^2, where conv2-6 are int8 (both pooled kernels),
 to keep the CPU's exact float64 int8 convs inside the time of a test.
 """
@@ -20,6 +20,7 @@ from pyvisim_tpu.ops.codebooks import KMeansCodebook as JKMeansCodebook
 from pyvisim_tpu_torch.encoders import VLADEncoder
 from pyvisim_tpu_torch.features import DeepConvFeature
 from pyvisim_tpu_torch.models import vgg as tvgg
+from pyvisim_tpu_torch.models.quant import RoutedConv
 from pyvisim_tpu_torch.ops.codebooks import KMeansCodebook
 from pyvisim_tpu_torch.ops.cuda import conv as tconv
 from pyvisim_tpu_torch.ops.vlad import vlad_encode
@@ -42,13 +43,13 @@ def jax_params():
 
 
 def _trunk_routes(model, size):
-    """Each conv's route at input ``size``: "k7", "k8", "quant" or "cudnn"."""
+    """Each conv's route at input ``size``: "k7", "k8" (pooled), "quant"
+    (kernel 8 alone) or "cudnn"."""
     routes = []
     for m in model.features:
-        if isinstance(m, tvgg.Int8TrunkConv):
-            probe = torch.empty((1, m.in_channels, size, size))
-            int8 = m.uses_int8(probe)
-            routes.append(("k8" if int8 else "k7") if m.pool else ("quant" if int8 else "cudnn"))
+        if isinstance(m, RoutedConv):
+            route = m.route(torch.empty((1, m.in_channels, size, size)))
+            routes.append({"int8_k8": "k8" if m.pool else "quant"}.get(route, route))
             size //= 2 if m.pool else 1
     return routes
 
@@ -100,7 +101,7 @@ def test_int8_weights_quantised_from_float32_in_a_bf16_trunk(jax_params):
     and the biases stay float32."""
     ext = DeepConvFeature(params=tvgg.params_from_jax(jax_params), image_size=64,
                           dtype=torch.bfloat16, int8=True, device="cpu")
-    convs = [m for m in ext.model.features if isinstance(m, tvgg.Int8TrunkConv)]
+    convs = [m for m in ext.model.features if isinstance(m, RoutedConv)]
     assert len(convs) == 13
     for i, m in enumerate(convs):
         kernel = jnp.asarray(jax_params["params"][f"conv{i}"]["kernel"])

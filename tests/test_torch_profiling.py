@@ -34,8 +34,8 @@ RESNET_STAGES = ["resnet.stem", "resnet.layer1", "resnet.layer2", "resnet.layer3
 # 3 + 3; the rest through the gemm route: 7 + 10 + 3, each with its
 # BatchNorm in the epilogue), and the 26 convs at 6 and 3, below the
 # window, run float.
-RESNET96_ROUTES = {"resnet.float_convs": 26, "resnet.int8_k8": 6, "resnet.int8_gemm": 20,
-                   "resnet.int8_gemm_fused": 20}
+RESNET96_ROUTES = {"conv.cudnn": 26, "conv.int8_k8": 6, "conv.int8_gemm": 20,
+                   "conv.int8_gemm_fused": 20}
 
 
 @pytest.fixture(scope="module", autouse=True)

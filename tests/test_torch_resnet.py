@@ -7,6 +7,8 @@ int8 route bit for bit; the int8 trunk against JAX's int8 trunk at cosine
 value across a rounding boundary of the next int8 grid, one step of 127),
 and against the float trunk at JAX's own gate, cosine > 0.995.
 """
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +23,7 @@ from pyvisim_tpu_torch import profiling
 from pyvisim_tpu_torch.features import DeepConvFeature
 from pyvisim_tpu_torch.models import quant as tquant
 from pyvisim_tpu_torch.models import resnet as tresnet
+from pyvisim_tpu_torch.models import vgg as tvgg
 from pyvisim_tpu_torch.ops.cuda import conv as tconv
 from pyvisim_tpu_torch.ops.cuda import int8_epilogue as tepi
 
@@ -252,7 +255,7 @@ def test_int8_trunk_matches_jax_int8_trunk(r50, int8_pair):
     routes = {}
     hooks = [m.register_forward_pre_hook(
         lambda mod, args, name=name: routes.__setitem__(name, mod.uses_int8(args[0])))
-        for name, m in model.named_modules() if isinstance(m, tresnet.BlockConv)]
+        for name, m in model.named_modules() if isinstance(m, tquant.RoutedConv)]
     got = _run_port(model, x)
     for h in hooks:
         h.remove()
@@ -369,13 +372,13 @@ MODES = {"bn": (False, False), "bn_relu": (True, False), "bn_residual_relu": (Tr
 @pytest.mark.parametrize("mode", sorted(MODES))
 @pytest.mark.parametrize("route", sorted(ROUTES))
 def test_fused_gemm_call_equals_the_module_chain(route, mode, dtype):
-    """A gemm-route BlockConv called with its BatchNorm (and ReLU, and the
+    """A gemm-route RoutedConv called with its BatchNorm (and ReLU, and the
     residual) takes them into int8_gemm_conv's epilogue, whose CPU twin
     equals the chain of module passes bit for bit; the counter records the
     fused call."""
     k, stride, pad = ROUTES[route]
     relu, with_residual = MODES[mode]
-    conv = tresnet.BlockConv(64, 72, k, stride, pad, 1, 64)
+    conv = tquant.RoutedConv(64, 72, k, stride, pad, bias=False, min_spatial=1, max_spatial=64)
     g = torch.Generator().manual_seed(k + stride)
     conv.load_state_dict({"weight": torch.randn(72, 64, k, k, generator=g) * 0.05})
     conv, bn = conv.to(dtype), _frozen_bn(72, seed=k).to(dtype)
@@ -385,7 +388,7 @@ def test_fused_gemm_call_equals_the_module_chain(route, mode, dtype):
     residual = torch.randn(2, 72, ho, wo, generator=g).to(dtype) if with_residual else None
     with torch.no_grad(), profiling.record() as rec:
         got = conv(x, bn, relu, residual)
-    assert rec.counters() == {"resnet.int8_gemm": 1, "resnet.int8_gemm_fused": 1}
+    assert rec.counters() == {"conv.int8_gemm": 1, "conv.int8_gemm_fused": 1}
     with torch.no_grad():
         want = bn(tquant.QuantConv.forward(conv, x))
         want = want + residual if with_residual else want
@@ -401,18 +404,32 @@ def test_fused_gemm_call_equals_the_module_chain(route, mode, dtype):
     assert torch.equal(plain, want.permute(0, 2, 3, 1))
 
 
-def test_block_convs_off_the_gemm_route_keep_their_passes():
+def test_block_convs_off_the_gemm_route_keep_their_passes(monkeypatch):
     """Kernel 8's 3x3/1 conv and a conv outside the int8 window take the
-    BatchNorm after the conv, unfused and uncounted as fused."""
+    BatchNorm after the conv, unfused and uncounted as fused. The conv's
+    map reaches the BatchNorm as a temporary that nothing else holds, so
+    it is freed as soon as BatchNorm has read it (a map held through the
+    add and ReLU raised the ResNet cell's peak by one map of layer1)."""
     x = torch.randn(1, 64, 8, 8, generator=torch.Generator().manual_seed(3))
     bn = _frozen_bn(64, seed=4)
-    for conv, route in ((tresnet.BlockConv(64, 64, 3, 1, 1, 1, 64), "resnet.int8_k8"),
-                        (tresnet.BlockConv(64, 64, 1, 1, 0, 16, 64), "resnet.float_convs")):
+    refs, tail = [], tepi.batch_norm_tail
+
+    def counted_tail(y, *args):
+        refs.append(sys.getrefcount(y))  # this frame's name and the call's argument
+        return tail(y, *args)
+
+    monkeypatch.setattr(tepi, "batch_norm_tail", counted_tail)
+    for conv, route in ((tquant.RoutedConv(64, 64, 3, 1, 1, bias=False, min_spatial=1,
+                                           max_spatial=64), "conv.int8_k8"),
+                        (tquant.RoutedConv(64, 64, 1, 1, 0, bias=False, min_spatial=16,
+                                           max_spatial=64), "conv.cudnn")):
         conv.load_state_dict({"weight": torch.randn(conv.weight.shape,
                                                     generator=torch.Generator().manual_seed(5))})
         with torch.no_grad(), profiling.record() as rec:
             got = conv(x, bn, True)
         assert rec.counters() == {route: 1}
+        assert refs == [2], refs
+        refs.clear()
         with torch.no_grad():
             assert torch.equal(got, torch.relu(bn(conv(x))))
 
@@ -453,15 +470,28 @@ def test_blocks_with_the_shortcut_first_equal_the_old_order(kind, cin, stride, i
         assert torch.equal(block(x), _old_block_order(block, x))
 
 
-@pytest.mark.parametrize("cfg, n_stages", [("resnet18", 4), ("resnet50", 2)])
+# Route counts of one forward at 32^2 with every block conv int8 (window
+# 1-64), and of the int8 VGG16 at 224^2 (the routes that
+# tests/test_torch_int8.py's test_int8_trunk_routes_as_jax asserts).
+TRUNK_ROUTES = {
+    "resnet18": {"conv.int8_k8": 13, "conv.int8_gemm": 6, "conv.int8_gemm_fused": 6},
+    "resnet50": {"conv.int8_k8": 6, "conv.int8_gemm": 17, "conv.int8_gemm_fused": 17},
+    "vgg16": {"conv.cudnn": 5, "conv.k7": 2, "conv.int8_k8": 6},
+}
+
+
+@pytest.mark.parametrize("cfg, n_stages", [("resnet18", 4), ("resnet50", 2),
+                                           pytest.param("vgg16", None, id="vgg16-224")])
 def test_every_gemm_route_call_of_an_int8_trunk_takes_its_batch_norm(cfg, n_stages):
     """Each gemm-route conv of an int8 trunk is followed by a BatchNorm, so
-    ``resnet.int8_gemm_fused`` equals ``resnet.int8_gemm``: ResNet18's
-    stride-2 conv1s and downsamples, every ResNet50 1x1 and 3x3/2 conv."""
-    model = tresnet.ResNetTrunk(cfg, n_stages, int8=True, int8_min_spatial=1,
-                                int8_max_spatial=64).eval()
+    ``conv.int8_gemm_fused`` equals ``conv.int8_gemm``: ResNet18's
+    stride-2 conv1s and downsamples, every ResNet50 1x1 and 3x3/2 conv.
+    Every route of a forward is counted once a conv, in the VGG trunk too."""
+    if cfg == "vgg16":
+        model, side = tvgg.VGGConvFeatures("vgg16", int8=True), 224
+    else:
+        model, side = tresnet.ResNetTrunk(cfg, n_stages, int8=True, int8_min_spatial=1,
+                                          int8_max_spatial=64).eval(), 32
     with torch.no_grad(), profiling.record() as rec:
-        model(torch.rand(1, 3, 32, 32).contiguous(memory_format=torch.channels_last))
-    c = rec.counters()
-    assert c["resnet.int8_gemm_fused"] == c["resnet.int8_gemm"] == {"resnet18": 6,
-                                                                     "resnet50": 17}[cfg]
+        model(torch.rand(1, 3, side, side).contiguous(memory_format=torch.channels_last))
+    assert {k: v for k, v in rec.counters().items() if k.startswith("conv.")} == TRUNK_ROUTES[cfg]
