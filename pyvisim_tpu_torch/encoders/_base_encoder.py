@@ -34,6 +34,7 @@ from .._base_classes import FeatureExtractorBase, SimilarityMetric
 from .._config import MODEL_FILES_PATH, get_logger, resolve_device
 from .._errors import WeightsNotFoundError
 from .._utils import cosine_similarity
+from ..io._staging import readback
 from ..ops import codebooks as cb
 from ..ops import gmm as gmm_ops
 from ..ops import kmeans as kmeans_ops
@@ -651,7 +652,7 @@ def _readback(out: torch.Tensor) -> np.ndarray:
     """The encodings copied to host numpy, in the ``readback`` span."""
     with profiling.span("readback"):
         profiling.count("d2h_bytes", out.numel() * out.element_size())
-        return out.cpu().numpy()
+        return readback(out)
 
 
 def _encode_paths_to_map(

@@ -27,6 +27,7 @@ from torch import nn
 from .. import profiling
 from .._base_classes import FeatureExtractorBase
 from .._config import get_logger, resolve_device
+from ..io._staging import upload
 from ..models import vgg as vgg_lib
 from ..models.quant import QuantConv
 from ..ops import sift as sift_ops
@@ -485,9 +486,9 @@ class DeepConvFeature(FeatureExtractorBase):
 
     def _to_device(self, array) -> torch.Tensor:
         with profiling.span("ingest.upload"):
-            host = torch.as_tensor(np.asarray(array))
-            profiling.count("h2d_bytes", host.numel() * host.element_size())
-            return host.to(self.device)
+            host = np.asarray(array)
+            profiling.count("h2d_bytes", host.nbytes)
+            return upload(host, self.device)
 
     @_check_output_shape
     def __call__(self, image: np.ndarray) -> np.ndarray:

@@ -33,6 +33,7 @@ import torch.nn.functional as F
 
 from .. import profiling
 from .._config import resolve_device
+from ..io._staging import upload
 from .cuda import ingest
 from .cuda import sift_window as kernels
 from .gaussian import gaussian_blur_batch
@@ -520,7 +521,7 @@ def _ingest_on_device(images, size: int, dev) -> torch.Tensor:
     with profiling.span("ingest.upload"):
         raw, layout, taps = _chunk_layout(images, size)
         profiling.count("h2d_bytes", raw.nbytes)
-        raw = torch.from_numpy(raw).to(dev)
+        raw = upload(raw, dev)
     with profiling.span("ingest.letterbox"):
         base = ingest.gray_letterbox(raw, layout, taps, size)
     profiling.count("ingest.on_card", len(layout))

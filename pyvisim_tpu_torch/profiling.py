@@ -34,7 +34,9 @@ and letterboxed on the device and on the host, and ``conv.cudnn``,
 ``conv.k7``, ``conv.int8_k8``, ``conv.int8_gemm`` and ``conv.int8_plain``,
 the convs of an int8 trunk (``models.quant.RoutedConv``) by the route
 each call took, and ``conv.int8_gemm_fused``, the gemm-route calls that
-took their BatchNorm into the epilogue.
+took their BatchNorm into the epilogue, and ``copy.staged`` and
+``copy.plain``, the host copies of ``io._staging.upload`` and
+``readback`` by the route each call took.
 """
 from __future__ import annotations
 

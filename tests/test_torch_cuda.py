@@ -14,6 +14,7 @@ import numpy as np
 from pyvisim_tpu_torch import index as tindex
 from pyvisim_tpu_torch import io as tio
 from pyvisim_tpu_torch import profiling
+from pyvisim_tpu_torch.io import _staging as tstaging
 from pyvisim_tpu_torch.models import QuantConv
 from pyvisim_tpu_torch.models import quant as tquant
 from pyvisim_tpu_torch.models import vgg as tvgg
@@ -1134,6 +1135,93 @@ def test_prefetch_to_device_delivers_the_batches_on_the_card(cuda_device):
     assert [name for *_, name in out] == [name for _, name in batches]
     for (_, got, _), (want, _) in zip(out, batches):
         np.testing.assert_array_equal(got, want)
+
+
+# -- the staged host copies (io/_staging.py) at the three cells' shapes --
+
+# Up: a deep cell's 64 images of 500x667x3 and SIFT's raw 16-image chunk;
+# down: the VGG and ResNet cells' 64 VLAD encodings.
+STAGED_UP = [(64, 500, 667, 3), (16, 500, 667, 3)]
+STAGED_DOWN = [(64, 131584), (64, 131200)]
+
+
+def _staged_counts(rec) -> tuple[int, int]:
+    c = rec.counters()
+    return c.get("copy.staged", 0), c.get("copy.plain", 0)
+
+
+def _ring_buffers(device):
+    return [b for (dev, _), ring in tstaging._RINGS.items() if dev == device
+            for b in ring.buffers]
+
+
+@pytest.mark.parametrize("shape", STAGED_UP, ids=lambda s: "x".join(map(str, s)))
+def test_staged_upload_equals_the_plain_copy(cuda_device, shape):
+    """Three batches back to back with no synchronise between them: a ring
+    buffer rewritten before its DMA had read it would corrupt one."""
+    rng = np.random.default_rng(sum(shape))
+    batches = [rng.integers(0, 256, shape, dtype=np.uint8) for _ in range(3)]
+    with profiling.record() as rec:
+        got = [tstaging.upload(b, cuda_device) for b in batches]
+    assert _staged_counts(rec) == (3, 0)
+    for g, b in zip(got, batches):
+        assert g.is_cuda and torch.equal(g, torch.from_numpy(b).to(cuda_device))
+
+
+@pytest.mark.parametrize("shape", STAGED_DOWN, ids=lambda s: "x".join(map(str, s)))
+def test_staged_readback_equals_the_plain_copy(cuda_device, shape):
+    """Three readbacks back to back, each tensor rewritten by the stream's
+    next kernel: every result is the caller's own pageable memory, shares
+    nothing with the ring and keeps its values."""
+    gen = torch.Generator(device=cuda_device).manual_seed(shape[1])
+    tensors = [torch.randn(shape, device=cuda_device, generator=gen) for _ in range(3)]
+    want = [t.cpu().numpy() for t in tensors]
+    with profiling.record() as rec:
+        got = []
+        for t in tensors:
+            got.append(tstaging.readback(t))
+            t.fill_(float("nan"))
+    assert _staged_counts(rec) == (3, 0)
+    buffers = _ring_buffers(torch.device("cuda", torch.cuda.current_device()))
+    assert buffers and all(b.is_pinned() for b in buffers)
+    assert sum(b.numel() for b in buffers) <= 48 << 20
+    for g, w in zip(got, want):
+        assert g.dtype == np.float32 and g.shape == shape and np.array_equal(g, w)
+        assert not torch.from_numpy(g).is_pinned()
+        assert not any(np.shares_memory(g, b.numpy()) for b in buffers)
+
+
+@pytest.mark.parametrize("trunk", ["vgg16", "resnet50"])
+def test_a_deep_encode_through_the_staged_copies_equals_the_plain_one(cuda_device, trunk,
+                                                                      monkeypatch):
+    """Each deep cell's configuration (64 images of 500x667, bf16, int8
+    routing, VLAD) gives the same encodings bit for bit by either route."""
+    from pyvisim_tpu_torch.encoders import VLADEncoder
+    from pyvisim_tpu_torch.features import DeepConvFeature
+    from pyvisim_tpu_torch.models.resnet import ResNetTrunk
+
+    torch.manual_seed(0)
+    if trunk == "vgg16":
+        ext = DeepConvFeature("vgg16", int8=True, dtype=torch.bfloat16, image_size=224,
+                              spatial_encoding=True, device=cuda_device)
+        k, d = 256, 514
+    else:
+        ext = DeepConvFeature(module=ResNetTrunk("resnet50", int8=True, int8_min_spatial=7,
+                                                 int8_max_spatial=56),
+                              dtype=torch.bfloat16, image_size=448, spatial_encoding=True,
+                              device=cuda_device)
+        k, d = 64, 2050
+    centers = torch.randn(k, d, generator=torch.Generator().manual_seed(1))
+    encoder = VLADEncoder(ext, kmeans_model=KMeansCodebook(centers=centers), device=cuda_device)
+    images = np.random.default_rng(2).integers(0, 256, (64, 500, 667, 3), dtype=np.uint8)
+    with profiling.record() as rec:
+        staged = encoder.encode(images)
+    assert _staged_counts(rec) == (2, 0)
+    monkeypatch.setattr(tstaging, "_stages_on", lambda device: False)
+    with profiling.record() as rec:
+        plain = encoder.encode(images)
+    assert _staged_counts(rec) == (0, 2)
+    assert staged.dtype == plain.dtype == np.float32 and np.array_equal(staged, plain)
 
 
 # -- slice 10: ResNet's int8 routes, kernels 1, 3 and 8 at ResNet50's shapes,
