@@ -281,10 +281,12 @@ class Lambda(FeatureExtractorBase):
 
 
 class DeepConvFeature(FeatureExtractorBase):
-    """Deep convolutional feature extractor over a VGG trunk.
+    """Deep feature extractor over a VGG trunk, or a custom conv or token
+    trunk (``module``).
 
-    Flattens the chosen conv layer's post-ReLU map to ``(Hf*Wf, C)``
-    descriptors in (h, w) row-major order and optionally appends the
+    Flattens the trunk's map (the chosen VGG conv layer's post-ReLU map, or
+    the module's ``(B, C, Hf, Wf)`` output) to ``(Hf*Wf, C)`` descriptors
+    in (h, w) row-major order and optionally appends the
     normalised ``(x/Wf, y/Hf)`` coordinates, x first, for ``C+2`` dims (514
     for VGG16's last conv). Preprocessing divides by 255 and resizes with
     antialiased bilinear taps, with no ImageNet normalisation, as the
@@ -305,10 +307,13 @@ class DeepConvFeature(FeatureExtractorBase):
         ``torch.bfloat16`` runs it in bf16, channels-last. Descriptors keep
         this dtype; the encoders cast them to float32 before VLAD.
     :param module: optional ``nn.Module`` mapping ``(B, 3, S, S)`` to a
-        ``(B, C, Hf, Wf)`` map, used in place of the VGG trunk, such as
-        ``models.resnet.ResNetTrunk`` (float or int8); ``params``, if given,
-        is loaded into it. A module that holds a ``QuantConv`` runs
-        channels-last in every dtype, as the int8 VGG trunk does.
+        ``(B, C, Hf, Wf)`` map, used in place of the VGG trunk: a conv trunk
+        such as ``models.resnet.ResNetTrunk`` (float or int8), or a token
+        trunk that returns its patch tokens as that grid, such as
+        ``models.vit.ViTTrunk`` (a facet of one block, the CLS token
+        dropped); ``params``, if given, is loaded into it. A module that
+        holds a ``QuantConv`` runs channels-last in every dtype, as the int8
+        VGG trunk does.
     :param int8: route the middle VGG convs through int8 (dynamic symmetric
         quantisation, per-image activation scales, per-channel weight
         scales; trunk-encoding cosine vs float32 > 0.999), and each conv
@@ -371,7 +376,8 @@ class DeepConvFeature(FeatureExtractorBase):
                 )
                 if probe.dim() != 4:
                     raise ValueError(
-                        "Custom module must return a (B, C, Hf, Wf) feature map, "
+                        "Custom module must return a (B, C, Hf, Wf) feature map (a "
+                        "token trunk: its patch tokens as that grid), "
                         f"got shape {tuple(probe.shape)}."
                     )
                 self._fmap_hw = (probe.shape[2], probe.shape[3])

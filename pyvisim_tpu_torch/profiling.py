@@ -21,7 +21,9 @@ parent's): ``encode``; ``ingest.gray``, ``ingest.letterbox`` and
 device (SIFT's uint8 images are copied raw and turned gray and
 letterboxed by one kernel launch inside ``ingest.letterbox``, with no
 ``ingest.gray``); ``features``, the extractor's device work, and in it
-a ResNet trunk's ``resnet.stem`` and ``resnet.layer1`` ... ``resnet.layer4``;
+a ResNet trunk's ``resnet.stem`` and ``resnet.layer1`` ... ``resnet.layer4``,
+or a ViT trunk's ``vit.embed``, ``vit.blocks`` (in it each block's
+``vit.attention`` and ``vit.ffn`` branch) and ``vit.facet``;
 ``aggregate``, the encode core; ``readback``, the encodings' copy to the
 host; ``query`` and ``search`` of ``RetrievalIndex``; and, outside any
 batch, ``init`` of the extractors and encoders and ``load_kernels`` of
@@ -34,7 +36,11 @@ and letterboxed on the device and on the host, and ``conv.cudnn``,
 ``conv.k7``, ``conv.int8_k8``, ``conv.int8_gemm`` and ``conv.int8_plain``,
 the convs of an int8 trunk (``models.quant.RoutedConv``) by the route
 each call took, and ``conv.int8_gemm_fused``, the gemm-route calls that
-took their BatchNorm into the epilogue, and ``copy.staged`` and
+took their BatchNorm into the epilogue, and ``attn.cudnn`` and
+``attn.math``, a ViT trunk's attention calls by the route each took
+(``models.vit.attention_route``: cuDNN's fused kernel, or the plain math),
+and ``vit.tokens``, the tokens a ViT forward carries through its blocks
+(batch x (1 + patches)), and ``copy.staged`` and
 ``copy.plain``, the host copies of ``io._staging.upload`` and
 ``readback`` by the route each call took.
 """

@@ -18,6 +18,7 @@ from pyvisim_tpu_torch.io import _staging as tstaging
 from pyvisim_tpu_torch.models import QuantConv
 from pyvisim_tpu_torch.models import quant as tquant
 from pyvisim_tpu_torch.models import vgg as tvgg
+from pyvisim_tpu_torch.models import vit as tvit
 from pyvisim_tpu_torch.ops import fisher as tfisher
 from pyvisim_tpu_torch.ops import gmm as tgmm
 from pyvisim_tpu_torch.ops import kmeans as tkmeans
@@ -1707,3 +1708,79 @@ def test_sharded_index_query_on_card_matches_unsharded(card_world, quantize):
             np.testing.assert_array_equal(i, wi)
             np.testing.assert_allclose(s, ws, rtol=0, atol=1e-6)
         assert list(answers[0][1][0, :2]) == [10, 700]
+
+
+def _vit_state(trunk, seed):
+    """A state dict for ``trunk`` far from its initialisation, as the ViT
+    cell draws it: weights with variance 1 / fan_in, biases N(0, 0.1),
+    LayerNorm weights U(0.5, 1.5), LayerScale U(0.2, 0.6), embeddings
+    N(0, 0.2)."""
+    g = torch.Generator().manual_seed(seed)
+    out = {}
+    for name, p in trunk.state_dict().items():
+        if name.endswith("gamma"):
+            t = 0.2 + 0.4 * torch.rand(p.shape, generator=g)
+        elif name.endswith(("norm1.weight", "norm2.weight")):
+            t = 0.5 + torch.rand(p.shape, generator=g)
+        elif name.endswith("bias"):
+            t = 0.1 * torch.randn(p.shape, generator=g)
+        elif name.endswith("weight"):
+            t = torch.randn(p.shape, generator=g) / float(np.prod(p.shape[1:])) ** 0.5
+        else:
+            t = 0.2 * torch.randn(p.shape, generator=g)
+        out[name] = t
+    return out
+
+
+@pytest.mark.parametrize("facet", ["value", "token"])
+def test_vit_trunk_in_bf16_on_card_matches_float32_on_the_fused_route(cuda_device, facet):
+    """A small ViT (width 192, three heads of 64 as ViT-g's, SwiGLU, 112^2:
+    65 tokens) in bf16 against the same trunk in float32 on the card: 1 - cos
+    an image within 2e-4 (the bf16 roundings of maps and weights read
+    2.3e-5 to 3.1e-5 on the CPU; the fused kernel also rounds its softmax
+    weights to bf16; a softmax scale off by sqrt(2) reads ~1e-2). Every bf16
+    attention call takes the fused route and none the plain math; the
+    float32 trunk takes the plain math."""
+    spec = tvit.ViTSpec(192, 3, 3, "swiglu", 512)
+    f32 = tvit.ViTTrunk(spec, layer=2, facet=facet, image_size=112, device=cuda_device)
+    state = _vit_state(f32, 11)
+    f32.load_state_dict(state)
+    bf = tvit.ViTTrunk(spec, layer=2, facet=facet, image_size=112, device=cuda_device,
+                       dtype=torch.bfloat16)
+    bf.load_state_dict(state)
+    x = torch.rand(4, 3, 112, 112, generator=torch.Generator().manual_seed(2)).to(cuda_device)
+    with torch.inference_mode(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        with profiling.record() as rec:
+            got = bf(x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last))
+        bf_counts = rec.counters()
+        with profiling.record() as rec:
+            want = f32(x)
+        f32_counts = rec.counters()
+    assert got.shape == want.shape == (4, 192, 8, 8) and got.dtype == torch.bfloat16
+    gap = 1.0 - torch.nn.functional.cosine_similarity(got.flatten(1).double(),
+                                                      want.flatten(1).double())
+    assert float(gap.max()) < 2e-4
+    calls = 2 if facet == "value" else 3
+    assert bf_counts == {f"attn.{tvit.FUSED_ROUTE}": calls, "vit.tokens": 4 * 65}
+    assert f32_counts == {"attn.math": calls, "vit.tokens": 4 * 65}
+
+
+@pytest.mark.parametrize("n", [17, 65, 1370])
+def test_vit_fused_attention_on_card_matches_the_plain_math(cuda_device, n):
+    """The fused route on the strided q, k, v views of one qkv projection (64
+    images x 24 heads x 1,370 tokens x 64, the ViT-g cell's call, and odd
+    token counts) against the plain math on the same bf16 inputs: within
+    2^-7 of the largest |v| (the output's bf16 rounding and the kernel's
+    bf16 softmax weights each move it by at most 2^-9 of that)."""
+    b = 64 if n == 1370 else 3
+    attn = tvit.Attention(1536, 24, device=cuda_device, dtype=torch.bfloat16)
+    g = torch.Generator(device=cuda_device).manual_seed(n)
+    qkv = (1.2 * torch.randn(b, n, 3, 24, 64, device=cuda_device, generator=g)).to(torch.bfloat16)
+    q, k, v = qkv.permute(2, 0, 3, 1, 4)
+    assert tvit.attention_route(q) == tvit.FUSED_ROUTE
+    with torch.inference_mode():
+        got = attn.core(q, k, v)
+        want = tvit.attention_reference(q[:3], k[:3], v[:3], attn.scale)
+    assert got.shape == (b, 24, n, 64) and got.dtype == torch.bfloat16
+    err = (got[:3].float() - want.float()).abs().max()
+    assert float(err) <= 2.0 ** -7 * float(v.abs().max())
