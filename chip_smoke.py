@@ -55,7 +55,12 @@ Phases, each of which raises on a failed check:
       kernel 8's amax and quantise launches and the epilogue kernel in its
       three modes (BatchNorm; + ReLU; + residual + ReLU), each bit for bit
       with its plain version, timed beside its byte bound and the torch
-      passes it replaces.
+      passes it replaces. Then the ViT block's float passes at the ViT-g
+      cell's shapes (64 images x 1,370 tokens): SwiGLU over 87,680 x 2 x
+      4,096 bit for bit with ``F.silu(x1) * x2``, and LayerScale + residual
+      + LayerNorm over 87,680 x 1,536 bit for bit with ``torch.addcmul``
+      and ``F.layer_norm``, each timed beside its byte bound and the torch
+      passes it replaces, with the bandwidth it reaches.
    e. The fused conv kernels at the int8 trunk's shapes (VGG16, 224^2,
       bf16, B=128): kernel 7 at conv1 and conv3, kernel 8 pooled at conv6
       and conv9 and unpooled at conv4, 5, 7 and 8, each against its plain
@@ -1480,6 +1485,56 @@ def phase_int8_epilogue(conv, epi):
         "(torch passes {:.4f}, {:.4f}, {:.4f} ms)".format(
             rec["amax"]["device_ms"], rec["quantise"]["device_ms"], rec["torch_quantiser_ms"],
             *(rec[m]["device_ms"] for m in modes), *(rec[m]["plain_ms"] for m in modes)))
+    return rec
+
+
+def phase_vit_passes(vp):
+    """The ViT block's two float-pass kernels at the ViT-g cell's shapes, on
+    maps drawn as the trunk carries them: each against its plain version
+    (the torch passes it replaces) first, then timed beside its byte bound
+    (device time from the profiler, the call's with CUDA events) and the
+    plain version, with the bandwidth each reaches."""
+    rows, hidden, width = 64 * 1370, 4096, 1536
+    g = torch.Generator(device="cuda").manual_seed(26)
+    x12 = (2.0 * torch.randn(rows, 2 * hidden, device="cuda", generator=g)).to(torch.bfloat16)
+    x = (3.0 * torch.randn(rows, width, device="cuda", generator=g)).to(torch.bfloat16)
+    y = torch.randn(rows, width, device="cuda", generator=g).to(torch.bfloat16)
+    gamma = (0.2 + 0.4 * torch.rand(width, device="cuda", generator=g)).to(torch.bfloat16)
+    weight = (0.5 + torch.rand(width, device="cuda", generator=g)).to(torch.bfloat16)
+    bias = (0.1 * torch.randn(width, device="cuda", generator=g)).to(torch.bfloat16)
+    norm = (gamma, weight, bias, 1e-6)
+    with torch.inference_mode():
+        check(torch.equal(vp.swiglu(x12).view(torch.int16),
+                          vp.swiglu_reference(x12).view(torch.int16)),
+              "the SwiGLU kernel differs from F.silu(x1) * x2")
+        for got, want in zip(vp.add_norm(x, y, *norm), vp.add_norm_reference(x, y, *norm)):
+            check(torch.equal(got.view(torch.int16), want.view(torch.int16)),
+                  "the add-norm kernel differs from torch.addcmul and F.layer_norm")
+        rec = {"name": "vit_passes", "route": "cuda", "source": "pyvisim_tpu_torch/csrc/vit_passes.cu",
+               "replaces": None, "library_ms": None,
+               "replaces_function": "none: the ViT block's SwiGLU and LayerScale-add-LayerNorm "
+                                    "torch passes"}
+        passes = {
+            "swiglu": {"call": lambda: vp.swiglu(x12), "plain": lambda: vp.swiglu_reference(x12),
+                       "bytes": 2 * x12.numel() + 2 * rows * hidden,
+                       "shape": f"{rows} x 2 x {hidden} bf16"},
+            "add_norm": {"call": lambda: vp.add_norm(x, y, *norm),
+                         "plain": lambda: vp.add_norm_reference(x, y, *norm),
+                         "bytes": 4 * 2 * x.numel() + 6 * width,
+                         "shape": f"{rows} x {width} bf16"},
+        }
+        for name, part in passes.items():
+            device_ms = profile_device_graph(part["call"], reps=20)["kernel_ms_per_call"]
+            plain = profile_device_graph(part["plain"], reps=5)
+            rec[name] = {"shape": part["shape"], "device_ms": device_ms,
+                         "ms": cuda_ms(part["call"]), "plain_ms": cuda_ms(part["plain"]),
+                         "plain_device_ms": plain["kernel_ms_per_call"], "plain": plain,
+                         "tb_per_s": part["bytes"] / device_ms / 1e9, **bound(0, part["bytes"])}
+    log(json.dumps({"vit_passes": rec}))
+    log("ViT passes at the ViT-g cell: swiglu {:.4f} ms device ({:.2f} TB/s; bound {:.4f}; torch "
+        "passes {:.4f}), add_norm {:.4f} ms device ({:.2f} TB/s; bound {:.4f}; torch passes "
+        "{:.4f})".format(*(rec[n][k] for n in passes for k in ("device_ms", "tb_per_s",
+                                                                 "bound_ms", "plain_device_ms"))))
     return rec
 
 
@@ -4291,6 +4346,7 @@ def run(flowers_root: pathlib.Path) -> int:
     from pyvisim_tpu_torch.ops.cuda import int8_epilogue as epi
     from pyvisim_tpu_torch.ops.cuda import lloyd_stats as ls
     from pyvisim_tpu_torch.ops.cuda import sift_window as sw
+    from pyvisim_tpu_torch.ops.cuda import vit_passes as vp
 
     t0 = time.perf_counter()
     smi = phase_environment(_build)
@@ -4306,6 +4362,8 @@ def run(flowers_root: pathlib.Path) -> int:
     sift_kernels = phase_sift_kernels(sw)
     ingest_kernel = phase_ingest(ingest)
     epilogue_kernel = phase_int8_epilogue(conv, epi)
+    vit_kernels = phase_vit_passes(vp)
+    torch.cuda.empty_cache()
     conv_kernels = phase_conv_kernels(conv)
     launches, encode_launches, centers, ext, images = phase_slice(agg)
     kernel["launches"] = launches
@@ -4373,7 +4431,7 @@ def run(flowers_root: pathlib.Path) -> int:
         rec["launches_parallel"] = launches12[rec["name"]]
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [kernel, gmm_kernel, lloyd_kernel, *sift_kernels, k7, k8,
-                                  ingest_kernel, epilogue_kernel]}))
+                                  ingest_kernel, epilogue_kernel, vit_kernels]}))
     print(json.dumps({
         "ok": True,
         "device": {

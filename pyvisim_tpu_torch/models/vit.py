@@ -34,10 +34,23 @@ FlashAttention-2's 2.60); anything else (the CPU, float32) runs
 :func:`attention_reference`, the plain math in the fused kernel's
 arithmetic.
 
+The float passes between a block's linears take a route of the same kind,
+decided from the map (``ops/cuda/vit_passes.py:takes``): bf16 maps on CUDA
+whose width is a multiple of 8 run two hand-written kernels, SwiGLU in one
+pass over ``w12``'s output, and each LayerScale + residual add together
+with the LayerNorm that follows it (``ls1`` with ``norm2``, ``ls2`` with
+the next block's ``norm1``; the trunk hands the normed map on, so only
+block 0's ``norm1`` is a LayerNorm of its own); anything else runs their
+plain versions, the torch passes ``F.silu(x1) * x2``, ``torch.addcmul``
+and ``F.layer_norm``. A block called alone (:meth:`Block.forward`) takes
+the same passes and ends with its ``ls2`` add.
+
 Under ``profiling.record()`` the trunk opens the spans ``vit.embed``,
 ``vit.blocks`` (and in each block ``vit.attention`` and ``vit.ffn``) and
-``vit.facet``, and counts ``attn.<route>`` (one a block's attention call)
-and ``vit.tokens`` (the tokens a forward carries through the blocks).
+``vit.facet``, and counts ``attn.<route>`` (one a block's attention call),
+``vit.swiglu.<route>`` and ``vit.add_norm.<route>`` (one a pass, route
+``kernel`` or ``plain``) and ``vit.tokens`` (the tokens a forward carries
+through the blocks).
 """
 from __future__ import annotations
 
@@ -48,6 +61,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import profiling
+from ..ops.cuda import vit_passes
 
 __all__ = ["ViTTrunk", "ViTSpec", "VARIANTS", "FACETS", "attention_route", "attention_reference"]
 
@@ -149,6 +163,27 @@ class Mlp(nn.Module):
         return self.fc2(F.gelu(self.fc1(x)))
 
 
+def _route(x: torch.Tensor, width: int) -> str:
+    return "kernel" if vit_passes.takes(x, width) else "plain"
+
+
+def swiglu(x12: torch.Tensor) -> torch.Tensor:
+    """``silu(x1) * x2`` of the halves of ``w12``'s output, by its route."""
+    route = _route(x12, x12.shape[-1] // 2)
+    profiling.count(f"vit.swiglu.{route}", 1)
+    if route == "kernel":
+        return vit_passes.swiglu(x12)
+    return vit_passes.swiglu_reference(x12)
+
+
+def add_norm(x: torch.Tensor, y: torch.Tensor, ls: LayerScale, norm: nn.LayerNorm):
+    """``(x + ls.gamma * y, norm of it)``, by its route."""
+    route = _route(x, x.shape[-1])
+    profiling.count(f"vit.add_norm.{route}", 1)
+    fn = vit_passes.add_norm if route == "kernel" else vit_passes.add_norm_reference
+    return fn(x, y, ls.gamma, norm.weight, norm.bias, norm.eps)
+
+
 class SwiGLUFFN(nn.Module):
     def __init__(self, dim: int, hidden: int, **factory):
         super().__init__()
@@ -156,8 +191,7 @@ class SwiGLUFFN(nn.Module):
         self.w3 = nn.Linear(hidden, dim, **factory)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x1, x2 = self.w12(x).chunk(2, dim=-1)
-        return self.w3(F.silu(x1) * x2)
+        return self.w3(swiglu(self.w12(x)))
 
 
 class Block(nn.Module):
@@ -173,11 +207,19 @@ class Block(nn.Module):
         self.ls2 = LayerScale(dim, **factory)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        # LayerScale and the residual add in one pass, one rounding.
+        return self.run(x, self.norm1(x))[0]
+
+    def run(self, x: torch.Tensor, h: torch.Tensor, next_norm: nn.LayerNorm | None = None):
+        """The block on ``x`` and ``h = norm1(x)``: ``(out, next_norm(out))``,
+        or ``(out, None)`` without ``next_norm``."""
         with profiling.span("vit.attention"):
-            x = torch.addcmul(x, self.attn(self.norm1(x)), self.ls1.gamma)
+            x, h = add_norm(x, self.attn(h), self.ls1, self.norm2)
         with profiling.span("vit.ffn"):
-            return torch.addcmul(x, self.mlp(self.norm2(x)), self.ls2.gamma)
+            y = self.mlp(h)
+            if next_norm is None:
+                # LayerScale and the residual add in one pass, one rounding.
+                return torch.addcmul(x, y, self.ls2.gamma), None
+            return add_norm(x, y, self.ls2, next_norm)
 
 
 class ViTTrunk(nn.Module):
@@ -257,19 +299,24 @@ class ViTTrunk(nn.Module):
             t = self.patch_embed.proj(x).flatten(2).transpose(1, 2)
             t = torch.cat([self.cls_token.expand(b, -1, -1), t], dim=1) + self.pos_embed
         profiling.count("vit.tokens", t.shape[0] * t.shape[1])
+        blocks = self.blocks
         with profiling.span("vit.blocks"):
-            for blk in self.blocks[:self.layer]:
-                t = blk(t)
+            h = blocks[0].norm1(t)
+            for i in range(self.layer):
+                t, h = blocks[i].run(t, h, blocks[i + 1].norm1)
         with profiling.span("vit.facet"):
-            return self._facet(t)
+            return self._facet(t, h)
 
-    def _facet(self, t: torch.Tensor) -> torch.Tensor:
-        """Block ``layer``'s facet of the patch tokens as ``(B, C, g, g)``."""
+    def _facet(self, t: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+        """Block ``layer``'s facet of the patch tokens as ``(B, C, g, g)``,
+        from its input ``t`` and ``h = norm1(t)``. A ``qkv`` third runs over
+        every token, the CLS row dropped after it (LayerNorm and the linear
+        act token by token), so no strided copy of the patch rows is made."""
         blk = self.blocks[self.layer]
         if self.facet == "token":
-            y = blk(t)[:, 1:]
+            y = blk.run(t, h)[0]
         else:
             d, j = self.spec.embed_dim, FACETS.index(self.facet)
             cols = slice(j * d, (j + 1) * d)
-            y = F.linear(blk.norm1(t[:, 1:]), blk.attn.qkv.weight[cols], blk.attn.qkv.bias[cols])
-        return y.reshape(y.shape[0], self.grid, self.grid, -1).permute(0, 3, 1, 2)
+            y = F.linear(h, blk.attn.qkv.weight[cols], blk.attn.qkv.bias[cols])
+        return y[:, 1:].reshape(y.shape[0], self.grid, self.grid, -1).permute(0, 3, 1, 2)

@@ -6,7 +6,7 @@ precision lower and three mutated references fail; the configuration's
 widths are ViT-g/14's and build its shapes; VLAD-8 through
 ``DeepConvFeature(module=ViTTrunk)`` agrees with the reference's float64
 encodings; a recorded forward opens the trunk's spans and counts its
-attention route and tokens."""
+attention route, its float passes' route and its tokens."""
 import copy
 import math
 
@@ -226,6 +226,9 @@ def test_a_recorded_forward_opens_the_trunk_spans_and_counts_its_route(encoder, 
     assert parent["vit.attention"] == parent["vit.ffn"] == "vit.blocks"
     names = [s.name for s in spans]
     assert names.count("vit.attention") == names.count("vit.ffn") == 3  # blocks 0-2
-    # One attention call a block, on the plain route on the CPU; 2 x 17 tokens.
+    # One attention call a block, on the plain route on the CPU; 2 x 17 tokens;
+    # the float passes on their plain route: a SwiGLU a block, an ls1 + norm2
+    # and an ls2 + next norm1 a block.
     counts = {k: v for k, v in rec.counters().items() if k.startswith(("attn.", "vit."))}
-    assert counts == {"attn.math": 3, "vit.tokens": 2 * 17}
+    assert counts == {"attn.math": 3, "vit.tokens": 2 * 17, "vit.swiglu.plain": 3,
+                      "vit.add_norm.plain": 6}

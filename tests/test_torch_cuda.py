@@ -32,6 +32,7 @@ from pyvisim_tpu_torch.ops.cuda import ingest as tingest
 from pyvisim_tpu_torch.ops.cuda import int8_epilogue as tepi
 from pyvisim_tpu_torch.ops.cuda import lloyd_stats as tls
 from pyvisim_tpu_torch.ops.cuda import sift_window as tsw
+from pyvisim_tpu_torch.ops.cuda import vit_passes as tvp
 
 pytestmark = pytest.mark.cuda
 
@@ -1739,8 +1740,9 @@ def test_vit_trunk_in_bf16_on_card_matches_float32_on_the_fused_route(cuda_devic
     an image within 2e-4 (the bf16 roundings of maps and weights read
     2.3e-5 to 3.1e-5 on the CPU; the fused kernel also rounds its softmax
     weights to bf16; a softmax scale off by sqrt(2) reads ~1e-2). Every bf16
-    attention call takes the fused route and none the plain math; the
-    float32 trunk takes the plain math."""
+    attention call takes the fused route and none the plain math, and every
+    SwiGLU and LayerScale-add-norm pass the kernels; the float32 trunk takes
+    the plain math and the plain passes."""
     spec = tvit.ViTSpec(192, 3, 3, "swiglu", 512)
     f32 = tvit.ViTTrunk(spec, layer=2, facet=facet, image_size=112, device=cuda_device)
     state = _vit_state(f32, 11)
@@ -1761,8 +1763,13 @@ def test_vit_trunk_in_bf16_on_card_matches_float32_on_the_fused_route(cuda_devic
                                                       want.flatten(1).double())
     assert float(gap.max()) < 2e-4
     calls = 2 if facet == "value" else 3
-    assert bf_counts == {f"attn.{tvit.FUSED_ROUTE}": calls, "vit.tokens": 4 * 65}
-    assert f32_counts == {"attn.math": calls, "vit.tokens": 4 * 65}
+    # A SwiGLU a block; an ls1 + norm2 and an ls2 + next norm1 a block, but
+    # the token facet's block 2, whose ls2 add ends the trunk.
+    passes = {"swiglu": calls, "add_norm": 4 if facet == "value" else 5}
+    assert bf_counts == {f"attn.{tvit.FUSED_ROUTE}": calls, "vit.tokens": 4 * 65,
+                         **{f"vit.{k}.kernel": n for k, n in passes.items()}}
+    assert f32_counts == {"attn.math": calls, "vit.tokens": 4 * 65,
+                          **{f"vit.{k}.plain": n for k, n in passes.items()}}
 
 
 @pytest.mark.parametrize("n", [17, 65, 1370])
@@ -1784,3 +1791,84 @@ def test_vit_fused_attention_on_card_matches_the_plain_math(cuda_device, n):
     assert got.shape == (b, 24, n, 64) and got.dtype == torch.bfloat16
     err = (got[:3].float() - want.float()).abs().max()
     assert float(err) <= 2.0 ** -7 * float(v.abs().max())
+
+
+@pytest.mark.parametrize("rows", [87680, 1, 65, 1371])
+def test_vit_swiglu_kernel_equals_the_torch_passes_bit_for_bit(cuda_device, rows):
+    """SwiGLU in one launch against ``F.silu(x1) * x2`` on the strided halves
+    of the same bf16 map: at the ViT-g cell's 87,680 x 2 x 4,096 (64 images
+    x 1,370 tokens) and at odd row counts, equal bit for bit."""
+    hidden = 4096 if rows == 87680 else 264
+    g = torch.Generator(device=cuda_device).manual_seed(rows)
+    x12 = (3.0 * torch.randn(rows, 2 * hidden, device=cuda_device, generator=g)).to(torch.bfloat16)
+    launches = tvp.swiglu.launches
+    with torch.inference_mode():
+        got = tvp.swiglu(x12)
+        x1, x2 = x12.chunk(2, dim=-1)
+        want = torch.nn.functional.silu(x1) * x2
+    assert tvp.swiglu.launches == launches + 1
+    assert got.shape == (rows, hidden) and got.dtype == torch.bfloat16 and got.is_contiguous()
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+def test_vit_swiglu_kernel_rounds_silu_as_aten_on_every_bf16_input(cuda_device):
+    """Every one of the 65,536 bf16 values as ``x1``, against ``F.silu``'s
+    ATen kernel, with ``x2`` 1 (the product exact) and ``x2`` drawn: equal
+    bit for bit wherever the input is a number; NaN where it is NaN."""
+    x1 = torch.arange(-2**15, 2**15, dtype=torch.int32, device=cuda_device).to(torch.int16)
+    x1 = x1.view(torch.bfloat16).reshape(-1, 64)
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    for x2 in (torch.ones_like(x1), torch.randn(x1.shape, device=cuda_device,
+                                                 generator=g).to(torch.bfloat16)):
+        with torch.inference_mode():
+            got = tvp.swiglu(torch.cat([x1, x2], dim=1))
+            want = torch.nn.functional.silu(x1) * x2
+        nan = torch.isnan(want)
+        assert torch.equal(torch.isnan(got), nan)
+        assert torch.equal(got[~nan].view(torch.int16), want[~nan].view(torch.int16))
+
+
+@pytest.mark.parametrize("width", [192, 384, 768, 1024, 1536, 2056])
+def test_vit_add_norm_kernel_equals_addcmul_and_layer_norm_bit_for_bit(cuda_device, width):
+    """LayerScale + residual add and the LayerNorm after it in one launch, on
+    a residual stream drawn as the trunk carries it (a per-channel offset,
+    gamma U(0.2, 0.6), LayerNorm weight U(0.5, 1.5), bias N(0, 0.1)):
+    x_new bit for bit with ``torch.addcmul`` and the normed map bit for bit
+    with ``F.layer_norm`` of it (the kernel takes its statistics as ATen's
+    kernel does; summed in another order, a few entries in a million lie a
+    bf16 step or two off). At 1,536 the ViT-g cell's 87,680 rows, elsewhere
+    1,371; 2,056 streams its rows through device memory instead of
+    registers."""
+    rows = 87680 if width == 1536 else 1371
+    g = torch.Generator(device=cuda_device).manual_seed(width)
+    draw = lambda *shape: torch.randn(*shape, device=cuda_device, generator=g)
+    x = (3.0 * draw(rows, width) + 2.0 * draw(width)).to(torch.bfloat16)
+    y = draw(rows, width).to(torch.bfloat16)
+    gamma = (0.2 + 0.4 * torch.rand(width, device=cuda_device, generator=g)).to(torch.bfloat16)
+    weight = (0.5 + torch.rand(width, device=cuda_device, generator=g)).to(torch.bfloat16)
+    bias = (0.1 * draw(width)).to(torch.bfloat16)
+    launches = tvp.add_norm.launches
+    with torch.inference_mode():
+        x_new, h = tvp.add_norm(x, y, gamma, weight, bias, 1e-6)
+        want_x = torch.addcmul(x, y, gamma)
+        want_h = torch.nn.functional.layer_norm(want_x, (width,), weight, bias, 1e-6)
+    assert tvp.add_norm.launches == launches + 1
+    assert torch.equal(x_new.view(torch.int16), want_x.view(torch.int16))
+    assert torch.equal(h.view(torch.int16), want_h.view(torch.int16))
+
+
+def test_vit_pass_launch_refused_by_the_library_raises(cuda_device):
+    """A launch the library refuses (a width the kernels do not take, passed
+    past the wrapper's checks) raises with CUDA's message and counts no
+    launch."""
+    lib = tvp._library()
+    x = torch.zeros(4, 24, dtype=torch.bfloat16, device=cuda_device)
+    index, stream = tagg.launch_target(x.device)
+    with pytest.raises(RuntimeError, match="SwiGLU kernel failed"):
+        tvp._launched(lib, lib.vit_swiglu(x.data_ptr(), x.data_ptr(), 4, 12, index, stream),
+                      "SwiGLU")
+    err = lib.vit_add_norm(*[x.data_ptr()] * 5, 1e-6, x.data_ptr(), x.data_ptr(), 4, 12, index,
+                           stream)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        tvp._launched(lib, err, "add-norm")
+    torch.cuda.synchronize()
