@@ -60,7 +60,11 @@ Phases, each of which raises on a failed check:
       4,096 bit for bit with ``F.silu(x1) * x2``, and LayerScale + residual
       + LayerNorm over 87,680 x 1,536 bit for bit with ``torch.addcmul``
       and ``F.layer_norm``, each timed beside its byte bound and the torch
-      passes it replaces, with the bandwidth it reaches.
+      passes it replaces, with the bandwidth it reaches. Then the same at
+      the DINOv3 cell's shapes (16 images x 2,309 tokens): the RoPE
+      rotation of qkv's q and k (3 x 4,096, heads of 128) in place, bit for
+      bit with its plain route, SwiGLU over 36,944 x 2 x 8,192 and
+      add-norm over 36,944 x 4,096 (its streamed path).
    e. The fused conv kernels at the int8 trunk's shapes (VGG16, 224^2,
       bf16, B=128): kernel 7 at conv1 and conv3, kernel 8 pooled at conv6
       and conv9 and unpooled at conv4, 5, 7 and 8, each against its plain
@@ -1488,6 +1492,20 @@ def phase_int8_epilogue(conv, epi):
     return rec
 
 
+def time_passes(passes: dict) -> dict:
+    """Each pass's device time (profiler) and call time (CUDA events) beside
+    its byte bound and its plain version's, with the bandwidth it reaches."""
+    out = {}
+    for name, part in passes.items():
+        device_ms = profile_device_graph(part["call"], reps=20)["kernel_ms_per_call"]
+        plain = profile_device_graph(part["plain"], reps=5)
+        out[name] = {"shape": part["shape"], "device_ms": device_ms,
+                     "ms": cuda_ms(part["call"]), "plain_ms": cuda_ms(part["plain"]),
+                     "plain_device_ms": plain["kernel_ms_per_call"], "plain": plain,
+                     "tb_per_s": part["bytes"] / device_ms / 1e9, **bound(0, part["bytes"])}
+    return out
+
+
 def phase_vit_passes(vp):
     """The ViT block's two float-pass kernels at the ViT-g cell's shapes, on
     maps drawn as the trunk carries them: each against its plain version
@@ -1523,18 +1541,71 @@ def phase_vit_passes(vp):
                          "bytes": 4 * 2 * x.numel() + 6 * width,
                          "shape": f"{rows} x {width} bf16"},
         }
-        for name, part in passes.items():
-            device_ms = profile_device_graph(part["call"], reps=20)["kernel_ms_per_call"]
-            plain = profile_device_graph(part["plain"], reps=5)
-            rec[name] = {"shape": part["shape"], "device_ms": device_ms,
-                         "ms": cuda_ms(part["call"]), "plain_ms": cuda_ms(part["plain"]),
-                         "plain_device_ms": plain["kernel_ms_per_call"], "plain": plain,
-                         "tb_per_s": part["bytes"] / device_ms / 1e9, **bound(0, part["bytes"])}
+        rec.update(time_passes(passes))
     log(json.dumps({"vit_passes": rec}))
     log("ViT passes at the ViT-g cell: swiglu {:.4f} ms device ({:.2f} TB/s; bound {:.4f}; torch "
         "passes {:.4f}), add_norm {:.4f} ms device ({:.2f} TB/s; bound {:.4f}; torch passes "
         "{:.4f})".format(*(rec[n][k] for n in passes for k in ("device_ms", "tb_per_s",
                                                                  "bound_ms", "plain_device_ms"))))
+    return rec
+
+
+def phase_dinov3_passes(vp, vit):
+    """The RoPE kernel at the DINOv3 cell's shapes (16 images x 2,309 tokens,
+    qkv 3 x 4,096 in bf16, 32 heads of 128, the 48 x 48 grid's table), and
+    the other two float-pass kernels at its widths (``swiglu`` at 36,944 x 2
+    x 8,192; ``add_norm`` at 36,944 x 4,096, eps 1e-5, its streamed path):
+    each against its plain version first, bit for bit, then timed beside
+    its byte bound (device time from the profiler, the call's with CUDA
+    events) and the plain version, with the bandwidth each reaches. The
+    rotation is in place, so its timed calls rotate the same buffer on."""
+    b, n, dim, hidden = 16, 2309, 4096, 8192
+    rows, patches = b * n, 48 * 48
+    g = torch.Generator(device="cuda").manual_seed(27)
+    qkv = (3.0 * torch.randn(b, n, 3 * dim, device="cuda", generator=g)).to(torch.bfloat16)
+    table = vit.rope_table(48, 48, 128, device="cuda")
+    x12 = (2.0 * torch.randn(rows, 2 * hidden, device="cuda", generator=g)).to(torch.bfloat16)
+    x = (3.0 * torch.randn(rows, dim, device="cuda", generator=g)).to(torch.bfloat16)
+    y = torch.randn(rows, dim, device="cuda", generator=g).to(torch.bfloat16)
+    gamma = (0.2 + 0.4 * torch.rand(dim, device="cuda", generator=g)).to(torch.bfloat16)
+    weight = (0.5 + torch.rand(dim, device="cuda", generator=g)).to(torch.bfloat16)
+    bias = (0.1 * torch.randn(dim, device="cuda", generator=g)).to(torch.bfloat16)
+    norm = (gamma, weight, bias, 1e-5)
+    with torch.inference_mode():
+        check(torch.equal(vp.rope(qkv.clone(), table).view(torch.int16),
+                          vp.rope_reference(qkv.clone(), table).view(torch.int16)),
+              "the RoPE kernel differs from its plain route at the DINOv3 cell's shapes")
+        check(torch.equal(vp.swiglu(x12).view(torch.int16),
+                          vp.swiglu_reference(x12).view(torch.int16)),
+              "the SwiGLU kernel differs from F.silu(x1) * x2 at halves of 8,192")
+        for got, want in zip(vp.add_norm(x, y, *norm), vp.add_norm_reference(x, y, *norm)):
+            check(torch.equal(got.view(torch.int16), want.view(torch.int16)),
+                  "the add-norm kernel differs from torch.addcmul and F.layer_norm at 4,096")
+        rec = {"name": "vit_rope", "route": "cuda",
+               "source": "pyvisim_tpu_torch/csrc/vit_passes.cu", "replaces": None,
+               "library_ms": None,
+               "replaces_function": "none: DINOv3's RoPE rotation of q and k (x cos + "
+                                    "rotate_half(x) sin in float32), as torch passes"}
+        passes = {
+            "rope": {"call": lambda: vp.rope(qkv, table),
+                     "plain": lambda: vp.rope_reference(qkv, table),
+                     "bytes": 2 * 2 * (b * patches * 2 * dim),
+                     "shape": f"{b} x {n} x 3 x {dim} bf16, {patches} patches, heads of 128"},
+            "swiglu": {"call": lambda: vp.swiglu(x12), "plain": lambda: vp.swiglu_reference(x12),
+                       "bytes": 2 * x12.numel() + 2 * rows * hidden,
+                       "shape": f"{rows} x 2 x {hidden} bf16"},
+            "add_norm": {"call": lambda: vp.add_norm(x, y, *norm),
+                         "plain": lambda: vp.add_norm_reference(x, y, *norm),
+                         "bytes": 4 * 2 * x.numel() + 6 * dim,
+                         "shape": f"{rows} x {dim} bf16"},
+        }
+        rec.update(time_passes(passes))
+    log(json.dumps({"dinov3_passes": rec}))
+    log("DINOv3 passes: rope {:.4f} ms device ({:.2f} TB/s; bound {:.4f}; plain {:.4f}), swiglu "
+        "{:.4f} ms ({:.2f} TB/s; bound {:.4f}; torch passes {:.4f}), add_norm {:.4f} ms ({:.2f} "
+        "TB/s; bound {:.4f}; torch passes {:.4f})".format(
+            *(rec[name][k] for name in passes for k in ("device_ms", "tb_per_s", "bound_ms",
+                                                         "plain_device_ms"))))
     return rec
 
 
@@ -4346,6 +4417,7 @@ def run(flowers_root: pathlib.Path) -> int:
     from pyvisim_tpu_torch.ops.cuda import int8_epilogue as epi
     from pyvisim_tpu_torch.ops.cuda import lloyd_stats as ls
     from pyvisim_tpu_torch.ops.cuda import sift_window as sw
+    from pyvisim_tpu_torch.models import vit
     from pyvisim_tpu_torch.ops.cuda import vit_passes as vp
 
     t0 = time.perf_counter()
@@ -4363,6 +4435,8 @@ def run(flowers_root: pathlib.Path) -> int:
     ingest_kernel = phase_ingest(ingest)
     epilogue_kernel = phase_int8_epilogue(conv, epi)
     vit_kernels = phase_vit_passes(vp)
+    torch.cuda.empty_cache()
+    rope_kernel = phase_dinov3_passes(vp, vit)
     torch.cuda.empty_cache()
     conv_kernels = phase_conv_kernels(conv)
     launches, encode_launches, centers, ext, images = phase_slice(agg)
@@ -4431,7 +4505,8 @@ def run(flowers_root: pathlib.Path) -> int:
         rec["launches_parallel"] = launches12[rec["name"]]
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [kernel, gmm_kernel, lloyd_kernel, *sift_kernels, k7, k8,
-                                  ingest_kernel, epilogue_kernel, vit_kernels]}))
+                                  ingest_kernel, epilogue_kernel, vit_kernels,
+                                  rope_kernel]}))
     print(json.dumps({
         "ok": True,
         "device": {

@@ -1,14 +1,16 @@
 // The ViT block's float passes between its linears, for Hopper (sm_90a), in
-// bf16: SwiGLU over w12's output in one pass, and LayerScale + residual add
-// together with the LayerNorm that follows it in one pass.
+// bf16: SwiGLU over w12's output in one pass, LayerScale + residual add
+// together with the LayerNorm that follows it in one pass, and DINOv3's
+// RoPE rotation of q and k in one in-place pass over qkv's output.
 //
 // They replace no TPU kernel: the JAX package leaves these elementwise
 // passes and LayerNorm to XLA, which fuses them. Before them, the port ran
 // each as torch passes of its own (F.silu on one strided half of w12's
 // output, its product with the other half, torch.addcmul, then
 // F.layer_norm), and it still does off the card:
-// ops/cuda/vit_passes.py:swiglu_reference and add_norm_reference are the
-// plain versions. The kernels round where those passes round:
+// ops/cuda/vit_passes.py:swiglu_reference, add_norm_reference and
+// rope_reference are the plain versions. The kernels round where those
+// passes round:
 //   swiglu:   s = round(x1 / (1 + expf(-x1)))     F.silu, as ATen's CUDA
 //             out = round(s * x2)                  kernel computes it; * x2
 //   add_norm: x_new = round(x + y * gamma)         torch.addcmul (y * gamma
@@ -21,7 +23,11 @@
 //             to thread i % 128), combined in ATen's order (a shuffle-down
 //             tree in each of its four warps, then across them), the last
 //             multiply and add fused,
-// so both kernels are bit for bit with the torch passes. (Statistics
+//   rope:     x1' = round(x1 * c - x2 * s)       the plain route's float32
+//             x2' = round(x2 * c + x1 * s)       products and sum, each
+//                                                rounded (no multiply-add
+//                                                fused), rounded once to bf16
+// so the kernels are bit for bit with the torch passes. (Statistics
 // summed in another order put a few entries in a million a bf16 step or
 // two off F.layer_norm's, where its output lies near zero.)
 //
@@ -73,7 +79,8 @@ __device__ __forceinline__ void load8(const bf16* p, float v[kVec]) {
   }
 }
 
-// v holds values already rounded to bf16, so the conversion is exact.
+// Each float rounded to bf16, to nearest even (exact where v holds bf16
+// values already).
 __device__ __forceinline__ void store8(bf16* p, const float v[kVec]) {
   uint4 raw;
   __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
@@ -101,6 +108,82 @@ __global__ void __launch_bounds__(kThreads)
       o[j] = round_bf16(__fmul_rn(s, b[j]));
     }
     store8(out + static_cast<size_t>(r) * hidden + c, o);
+  }
+}
+
+// rope: the DINOv3 trunk's 2-D RoPE over qkv's (rows, 3 * dim) bf16 output,
+// in place: the q and k thirds (2 * dim columns, heads of 2 * half) of each
+// image's patch rows, the CLS and register rows before them untouched. The
+// float32 table holds cos (patches, half), then sin (patches, half); a
+// patch's angles are the same for all its q and k heads (64 of them at the
+// DINOv3 ViT-7B cell's 32 heads of 128).
+// Bound: the bytes, 2 read and 2 written an entry: at the cell's 16 images
+// x 2,304 patches x 8,192 q and k columns 1.21 GB a call, 0.36 ms at 3.35
+// TB/s (the 1.2 MB table stays in L2). Before it the plain torch route made
+// float32 copies of q and k, four products, a sum, a difference, a stack
+// and a rounded copy back: about 12 times the bytes.
+// A block takes one patch row: a thread takes 8 columns of a half-head
+// (threadIdx.x) and kRopePer heads (threadIdx.y plus strides of
+// blockDim.y), loads its 8 cos and 8 sin once, then both halves of each of
+// its heads (two 16-byte loads, two 16-byte stores). A warp reads 128
+// contiguous bytes of each half of four heads.
+constexpr int kRopePer = 2;  // heads a thread rotates
+
+__device__ __forceinline__ void load8f(const float* p, float v[kVec]) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+  v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+}
+
+// 8 bf16 as floats through the coherent path (data this kernel writes).
+__device__ __forceinline__ void load8_rw(const bf16* p, float v[kVec]) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int j = 0; j < kVec / 2; ++j) {
+    const float2 f = __bfloat1622float2(h[j]);
+    v[2 * j] = f.x;
+    v[2 * j + 1] = f.y;
+  }
+}
+
+// Grid: x over the images' patch rows (image * patches + patch), y over
+// groups of blockDim.y * kRopePer heads.
+__global__ void __launch_bounds__(kThreads)
+    rope_kernel(bf16* __restrict__ qkv, const float* __restrict__ table, int patches, int tokens,
+                int prefix, int dim, int half) {
+  const int image = blockIdx.x / patches, p = blockIdx.x - image * patches;
+  const int j = threadIdx.x * kVec;
+  const int heads = dim / half;  // q and k heads: 2 * dim / (2 * half)
+  float c[kVec], s[kVec];
+  load8f(table + static_cast<size_t>(p) * half + j, c);
+  load8f(table + (static_cast<size_t>(patches) + p) * half + j, s);
+  bf16* row = qkv + (static_cast<size_t>(image) * tokens + prefix + p) * 3 * dim;
+  float x1[kRopePer][kVec], x2[kRopePer][kVec];
+  const int first = blockIdx.y * blockDim.y * kRopePer + threadIdx.y;
+#pragma unroll
+  for (int k = 0; k < kRopePer; ++k) {
+    const int v = first + k * blockDim.y;
+    if (v < heads) {
+      load8_rw(row + static_cast<size_t>(v) * 2 * half + j, x1[k]);
+      load8_rw(row + static_cast<size_t>(v) * 2 * half + half + j, x2[k]);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kRopePer; ++k) {
+    const int v = first + k * blockDim.y;
+    if (v < heads) {
+      float o1[kVec], o2[kVec];
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) {
+        o1[e] = __fsub_rn(__fmul_rn(x1[k][e], c[e]), __fmul_rn(x2[k][e], s[e]));
+        o2[e] = __fadd_rn(__fmul_rn(x2[k][e], c[e]), __fmul_rn(x1[k][e], s[e]));
+      }
+      // store8 rounds each float to bf16, to nearest even, once.
+      store8(row + static_cast<size_t>(v) * 2 * half + j, o1);
+      store8(row + static_cast<size_t>(v) * 2 * half + half + j, o2);
+    }
   }
 }
 
@@ -331,6 +414,32 @@ int vit_add_norm(const void* x, const void* y, const void* gamma, const void* we
     default: VIT_ADD_NORM(0);
   }
 #undef VIT_ADD_NORM
+}
+
+// qkv (images * tokens, 3 * dim) bf16, contiguous and 16-byte aligned;
+// table (2, tokens - prefix, half) float32, contiguous and 16-byte aligned;
+// half a multiple of 8 dividing dim. Rotates, in place, the q and k thirds
+// of each image's rows prefix .. tokens - 1. Returns the CUDA error status
+// (0 on success).
+int vit_rope(void* qkv, const void* table, int images, int tokens, int prefix, int dim, int half,
+             int device, void* stream_ptr) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const int patches = tokens - prefix;
+  if (images < 0 || prefix < 0 || patches < 0 || half <= 0 || half % kVec != 0 ||
+      dim % half != 0 || (dim / half) % 2 != 0 || half / kVec > kThreads)
+    return cudaErrorInvalidValue;
+  if (images == 0 || patches == 0) return cudaSuccess;
+  const long long blocks = static_cast<long long>(images) * patches;
+  if (blocks >= (1LL << 31)) return cudaErrorInvalidValue;
+  const int groups = half / kVec;
+  const dim3 block(groups, kThreads / groups);
+  const int per_block = block.y * kRopePer, heads = dim / half;
+  const dim3 grid(static_cast<unsigned>(blocks), (heads + per_block - 1) / per_block);
+  rope_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream_ptr)>>>(
+      static_cast<bf16*>(qkv), static_cast<const float*>(table), patches, tokens, prefix, dim,
+      half);
+  return cudaGetLastError();
 }
 
 }  // extern "C"

@@ -1,11 +1,12 @@
 """The ViT block's float passes between its linears: SwiGLU over ``w12``'s
-output, and LayerScale + residual add with the LayerNorm that follows. The
-CUDA kernels' wrappers and their plain PyTorch versions.
+output, LayerScale + residual add with the LayerNorm that follows, and
+DINOv3's RoPE rotation of q and k. The CUDA kernels' wrappers and their
+plain PyTorch versions.
 
 The kernels (``csrc/vit_passes.cu``) replace no TPU kernel: the JAX
 package leaves these passes to XLA, which fuses them. On the card each
 reads its inputs once and writes its outputs once, in bf16, where the
-torch passes they replace moved a temporary through device memory:
+torch passes they replace moved temporaries through device memory:
 
 - :func:`swiglu`: ``(M, 2H)`` contiguous -> ``(M, H)``, ``silu(x1) * x2``
   of the two halves, bit for bit with ``F.silu(x1) * x2`` (each rounded
@@ -14,15 +15,21 @@ torch passes they replace moved a temporary through device memory:
   bit for bit with ``torch.addcmul`` and ``F.layer_norm``: the kernel takes
   the LayerNorm's statistics as ATen's vectorised kernel does (Welford
   partials of 128 threads a row, combined in its order), as the source
-  says.
+  says;
+- :func:`rope`: ``qkv`` ``(B, N, 3C)`` rotated in place, the q and k
+  thirds of each image's last ``P`` rows (its patches; the CLS and
+  register rows before them untouched) by a ``(2, P, hd / 2)`` float32
+  table of cos and sin: each head's halves become ``x1 cos - x2 sin`` and
+  ``x2 cos + x1 sin``, every product and the sum rounded to float32 and
+  the result once to bf16, bit for bit with :func:`rope_reference`.
 
 :func:`takes` is the route: the kernels take bf16 CUDA maps whose width is
-a multiple of 8 while no gradient is recorded (they have no backward);
-everything else (the CPU, float32) takes the plain versions,
-:func:`swiglu_reference` and :func:`add_norm_reference`, which are the
-torch composition the ViT trunk ran before the kernels. The wrappers
-raise on what the kernels do not take and count launches in
-``.launches``.
+a multiple of 8 (for the rotation, a half-head) while no gradient is
+recorded (they have no backward); everything else (the CPU, float32) takes
+the plain versions, :func:`swiglu_reference`, :func:`add_norm_reference`
+and :func:`rope_reference`, which are the torch composition the ViT trunk
+runs without the kernels. The wrappers raise on what the kernels do not
+take and count launches in ``.launches``.
 """
 from __future__ import annotations
 
@@ -34,7 +41,8 @@ import torch.nn.functional as F
 from ._build import load_library
 from .aggregate import launch_target
 
-__all__ = ["takes", "swiglu", "swiglu_reference", "add_norm", "add_norm_reference"]
+__all__ = ["takes", "swiglu", "swiglu_reference", "add_norm", "add_norm_reference", "rope",
+           "rope_reference"]
 
 # A thread of either kernel takes 8 bf16 columns (16 bytes) at a time.
 _COLUMNS = 8
@@ -48,6 +56,8 @@ def _library() -> ctypes.CDLL:
         lib.vit_swiglu.restype = i32
         lib.vit_add_norm.argtypes = [ptr] * 5 + [ctypes.c_float] + [ptr] * 2 + [i32] * 3 + [ptr]
         lib.vit_add_norm.restype = i32
+        lib.vit_rope.argtypes = [ptr, ptr] + [i32] * 6 + [ptr]
+        lib.vit_rope.restype = i32
         lib.vit_passes_error_string.argtypes = [i32]
         lib.vit_passes_error_string.restype = ctypes.c_char_p
         lib._pyvisim_typed = True
@@ -75,9 +85,23 @@ def add_norm_reference(x, y, gamma, weight, bias, eps: float):
     return x, F.layer_norm(x, (x.shape[-1],), weight, bias, eps)
 
 
-def _check(name: str, t: torch.Tensor, shape=None) -> None:
-    if t.dtype != torch.bfloat16:
-        raise TypeError(f"{name} must be bfloat16, got {t.dtype}")
+def rope_reference(qkv: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``qkv`` ``(B, N, 3C)`` with the q and k thirds of each image's last
+    ``P`` rows rotated in place by ``table`` ``(2, P, hd / 2)`` (cos, sin):
+    each head's halves ``x1, x2`` become ``x1 cos - x2 sin`` and ``x2 cos
+    + x1 sin`` in float32 (or wider), rounded once to ``qkv``'s dtype.
+    Returns ``qkv``."""
+    n, half = qkv.shape[1], table.shape[-1]
+    qk = qkv[:, n - table.shape[1]:, :2 * qkv.shape[-1] // 3].unflatten(-1, (-1, 2, half))
+    x1, x2 = qk.to(torch.promote_types(qkv.dtype, torch.float32)).unbind(-2)
+    cos, sin = table[0, :, None], table[1, :, None]
+    qk.copy_(torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-2))
+    return qkv
+
+
+def _check(name: str, t: torch.Tensor, shape=None, dtype=torch.bfloat16) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {str(dtype).removeprefix('torch.')}, got {t.dtype}")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} must be {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():
@@ -154,3 +178,41 @@ def add_norm(x, y, gamma, weight, bias, eps: float):
 
 
 add_norm.launches = 0
+
+
+def rope(qkv: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``qkv`` ``(B, N, 3C)``, contiguous bf16 on CUDA and 16-byte aligned,
+    with the q and k thirds of each image's last ``P`` rows rotated in place
+    by ``table`` ``(2, P, hd / 2)`` float32 on the same card (``hd / 2`` a
+    multiple of 8 dividing ``C / 2``), as one kernel launch; returns
+    ``qkv``. The result is :func:`rope_reference`'s, bit for bit."""
+    _check("qkv", qkv)
+    _check("table", table, dtype=torch.float32)
+    if qkv.dim() != 3 or qkv.shape[-1] % 3:
+        raise ValueError(f"qkv must be (B, N, 3C), got {tuple(qkv.shape)}")
+    b, n, width = qkv.shape
+    dim = width // 3
+    if table.dim() != 3 or table.shape[0] != 2 or table.shape[1] > n:
+        raise ValueError(f"table must be (2, P, hd / 2) with P <= {n}, got {tuple(table.shape)}")
+    half = table.shape[-1]
+    if half % _COLUMNS or half == 0 or dim % (2 * half):
+        raise ValueError(f"the RoPE kernel takes half-heads of a multiple of {_COLUMNS} columns "
+                         f"that divide C / 2 = {dim // 2}; got {half}")
+    if not qkv.is_cuda or table.device != qkv.device:
+        raise ValueError(f"the RoPE kernel takes tensors on one CUDA card; qkv is on {qkv.device}")
+    if qkv.data_ptr() % 16 or table.data_ptr() % 16:
+        raise ValueError("the RoPE kernel rotates in place and takes 16-byte aligned tensors")
+    patches = table.shape[1]
+    if b * patches >= 2**31:
+        raise ValueError(f"the RoPE kernel takes fewer than 2**31 patch rows, got {b * patches}")
+    if b * patches == 0:
+        return qkv
+    lib = _library()
+    index, stream = launch_target(qkv.device)
+    _launched(lib, lib.vit_rope(qkv.data_ptr(), table.data_ptr(), b, n, n - patches, dim, half,
+                                index, stream), "RoPE")
+    rope.launches += 1
+    return qkv
+
+
+rope.launches = 0

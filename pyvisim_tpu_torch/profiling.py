@@ -23,7 +23,9 @@ letterboxed by one kernel launch inside ``ingest.letterbox``, with no
 ``ingest.gray``); ``features``, the extractor's device work, and in it
 a ResNet trunk's ``resnet.stem`` and ``resnet.layer1`` ... ``resnet.layer4``,
 or a ViT trunk's ``vit.embed``, ``vit.blocks`` (in it each block's
-``vit.attention`` and ``vit.ffn`` branch) and ``vit.facet``;
+``vit.attention`` and ``vit.ffn`` branch) and ``vit.facet``, or
+``vit.norm`` for the final-norm facet (the last block and the final
+LayerNorm);
 ``aggregate``, the encode core; ``readback``, the encodings' copy to the
 host; ``query`` and ``search`` of ``RetrievalIndex``; and, outside any
 batch, ``init`` of the extractors and encoders and ``load_kernels`` of
@@ -39,8 +41,10 @@ each call took, and ``conv.int8_gemm_fused``, the gemm-route calls that
 took their BatchNorm into the epilogue, and ``attn.cudnn`` and
 ``attn.math``, a ViT trunk's attention calls by the route each took
 (``models.vit.attention_route``: cuDNN's fused kernel, or the plain math),
-and ``vit.tokens``, the tokens a ViT forward carries through its blocks
-(batch x (1 + patches)), and ``copy.staged`` and
+``vit.swiglu.<route>``, ``vit.add_norm.<route>`` and ``vit.rope.<route>``,
+its float passes by route (``kernel`` or ``plain``; ``vit.rope`` one a
+block's RoPE rotation), and ``vit.tokens``, the tokens a ViT forward
+carries through its blocks (batch x (1 + registers + patches)), and ``copy.staged`` and
 ``copy.plain``, the host copies of ``io._staging.upload`` and
 ``readback`` by the route each call took.
 """

@@ -1772,33 +1772,36 @@ def test_vit_trunk_in_bf16_on_card_matches_float32_on_the_fused_route(cuda_devic
                           **{f"vit.{k}.plain": n for k, n in passes.items()}}
 
 
-@pytest.mark.parametrize("n", [17, 65, 1370])
+@pytest.mark.parametrize("n", [17, 65, 1370, 2309])
 def test_vit_fused_attention_on_card_matches_the_plain_math(cuda_device, n):
     """The fused route on the strided q, k, v views of one qkv projection (64
-    images x 24 heads x 1,370 tokens x 64, the ViT-g cell's call, and odd
-    token counts) against the plain math on the same bf16 inputs: within
-    2^-7 of the largest |v| (the output's bf16 rounding and the kernel's
-    bf16 softmax weights each move it by at most 2^-9 of that)."""
-    b = 64 if n == 1370 else 3
-    attn = tvit.Attention(1536, 24, device=cuda_device, dtype=torch.bfloat16)
+    images x 24 heads x 1,370 tokens x 64, the ViT-g cell's call; 16 images
+    x 32 heads x 2,309 tokens x 128, the DINOv3 cell's; and odd token
+    counts) against the plain math on the same bf16 inputs, three images of
+    them: within 2^-7 of the largest |v| (the output's bf16 rounding and the
+    kernel's bf16 softmax weights each move it by at most 2^-9 of that)."""
+    b = {1370: 64, 2309: 16}.get(n, 3)
+    heads, hd = (32, 128) if n == 2309 else (24, 64)
+    attn = tvit.Attention(heads * hd, heads, device=cuda_device, dtype=torch.bfloat16)
     g = torch.Generator(device=cuda_device).manual_seed(n)
-    qkv = (1.2 * torch.randn(b, n, 3, 24, 64, device=cuda_device, generator=g)).to(torch.bfloat16)
-    q, k, v = qkv.permute(2, 0, 3, 1, 4)
+    qkv = 1.2 * torch.randn(b, n, 3, heads, hd, device=cuda_device, generator=g)
+    q, k, v = qkv.to(torch.bfloat16).permute(2, 0, 3, 1, 4)
     assert tvit.attention_route(q) == tvit.FUSED_ROUTE
     with torch.inference_mode():
         got = attn.core(q, k, v)
         want = tvit.attention_reference(q[:3], k[:3], v[:3], attn.scale)
-    assert got.shape == (b, 24, n, 64) and got.dtype == torch.bfloat16
+    assert got.shape == (b, heads, n, hd) and got.dtype == torch.bfloat16
     err = (got[:3].float() - want.float()).abs().max()
     assert float(err) <= 2.0 ** -7 * float(v.abs().max())
 
 
-@pytest.mark.parametrize("rows", [87680, 1, 65, 1371])
+@pytest.mark.parametrize("rows", [87680, 1, 65, 1371, 36944])
 def test_vit_swiglu_kernel_equals_the_torch_passes_bit_for_bit(cuda_device, rows):
     """SwiGLU in one launch against ``F.silu(x1) * x2`` on the strided halves
     of the same bf16 map: at the ViT-g cell's 87,680 x 2 x 4,096 (64 images
-    x 1,370 tokens) and at odd row counts, equal bit for bit."""
-    hidden = 4096 if rows == 87680 else 264
+    x 1,370 tokens), the DINOv3 cell's 36,944 x 2 x 8,192 (16 images x 2,309
+    tokens) and at odd row counts, equal bit for bit."""
+    hidden = {87680: 4096, 36944: 8192}.get(rows, 264)
     g = torch.Generator(device=cuda_device).manual_seed(rows)
     x12 = (3.0 * torch.randn(rows, 2 * hidden, device=cuda_device, generator=g)).to(torch.bfloat16)
     launches = tvp.swiglu.launches
@@ -1828,7 +1831,7 @@ def test_vit_swiglu_kernel_rounds_silu_as_aten_on_every_bf16_input(cuda_device):
         assert torch.equal(got[~nan].view(torch.int16), want[~nan].view(torch.int16))
 
 
-@pytest.mark.parametrize("width", [192, 384, 768, 1024, 1536, 2056])
+@pytest.mark.parametrize("width", [192, 384, 768, 1024, 1536, 2056, 4096])
 def test_vit_add_norm_kernel_equals_addcmul_and_layer_norm_bit_for_bit(cuda_device, width):
     """LayerScale + residual add and the LayerNorm after it in one launch, on
     a residual stream drawn as the trunk carries it (a per-channel offset,
@@ -1836,10 +1839,11 @@ def test_vit_add_norm_kernel_equals_addcmul_and_layer_norm_bit_for_bit(cuda_devi
     x_new bit for bit with ``torch.addcmul`` and the normed map bit for bit
     with ``F.layer_norm`` of it (the kernel takes its statistics as ATen's
     kernel does; summed in another order, a few entries in a million lie a
-    bf16 step or two off). At 1,536 the ViT-g cell's 87,680 rows, elsewhere
-    1,371; 2,056 streams its rows through device memory instead of
-    registers."""
-    rows = 87680 if width == 1536 else 1371
+    bf16 step or two off). At 1,536 the ViT-g cell's 87,680 rows, at 4,096
+    the DINOv3 cell's 36,944 with its eps 1e-5, elsewhere 1,371; 2,056 and
+    4,096 stream their rows through device memory instead of registers."""
+    rows = {1536: 87680, 4096: 36944}.get(width, 1371)
+    eps = 1e-5 if width == 4096 else 1e-6
     g = torch.Generator(device=cuda_device).manual_seed(width)
     draw = lambda *shape: torch.randn(*shape, device=cuda_device, generator=g)
     x = (3.0 * draw(rows, width) + 2.0 * draw(width)).to(torch.bfloat16)
@@ -1849,12 +1853,73 @@ def test_vit_add_norm_kernel_equals_addcmul_and_layer_norm_bit_for_bit(cuda_devi
     bias = (0.1 * draw(width)).to(torch.bfloat16)
     launches = tvp.add_norm.launches
     with torch.inference_mode():
-        x_new, h = tvp.add_norm(x, y, gamma, weight, bias, 1e-6)
+        x_new, h = tvp.add_norm(x, y, gamma, weight, bias, eps)
         want_x = torch.addcmul(x, y, gamma)
-        want_h = torch.nn.functional.layer_norm(want_x, (width,), weight, bias, 1e-6)
+        want_h = torch.nn.functional.layer_norm(want_x, (width,), weight, bias, eps)
     assert tvp.add_norm.launches == launches + 1
     assert torch.equal(x_new.view(torch.int16), want_x.view(torch.int16))
     assert torch.equal(h.view(torch.int16), want_h.view(torch.int16))
+
+
+@pytest.mark.parametrize("images, tokens, dim, hd", [(16, 2309, 4096, 128), (3, 70, 4096, 128),
+                                                     (2, 17, 1536, 64), (1, 6, 256, 16)])
+def test_vit_rope_kernel_equals_the_plain_route_bit_for_bit(cuda_device, images, tokens, dim, hd):
+    """The RoPE rotation in one in-place launch against its plain route
+    (float32 products and sums, one rounding to bf16) on the same bf16
+    ``qkv``: at the DINOv3 cell's 16 images x 2,309 tokens x 3 x 4,096
+    (32 heads of 128, 5 prefix rows), at ragged row counts and at other
+    head widths, equal bit for bit, the prefix rows and the v third left as
+    they were. The angles are drawn over several turns, so that cos and sin
+    take every sign."""
+    patches = tokens - 5
+    g = torch.Generator(device=cuda_device).manual_seed(tokens)
+    qkv = (3.0 * torch.randn(images, tokens, 3 * dim, device=cuda_device, generator=g))
+    qkv = qkv.to(torch.bfloat16)
+    angles = 20.0 * torch.rand(patches, hd // 2, device=cuda_device, generator=g)
+    table = torch.stack([angles.cos(), angles.sin()])
+    launches = tvp.rope.launches
+    with torch.inference_mode():
+        got = tvp.rope(qkv.clone(), table)
+        want = tvp.rope_reference(qkv.clone(), table)
+    assert tvp.rope.launches == launches + 1
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    assert torch.equal(got[:, :5], qkv[:, :5])
+    assert torch.equal(got[..., 2 * dim:], qkv[..., 2 * dim:])
+    assert float((got[:, 5:, :2 * dim] != qkv[:, 5:, :2 * dim]).float().mean()) > 0.9
+
+
+def test_vit_rope_trunk_in_bf16_on_card_matches_float32(cuda_device):
+    """A small DINOv3-shaped trunk (width 256, two heads of 128 as ViT-7B's,
+    4 registers, patch 16, RoPE, no qkv bias, SwiGLU, the final-norm facet)
+    at 128^2 (69 tokens) in bf16 against the same trunk in float32 on the
+    card: 1 - cos an image within 2e-4. Every bf16 rotation takes the
+    kernel, every attention call the fused route and every float pass its
+    kernel; the float32 trunk takes the plain routes."""
+    spec = tvit.ViTSpec(256, 3, 2, "swiglu", 512, patch=16, registers=4, position="rope",
+                        ln_eps=1e-5, qkv_bias=False)
+    f32 = tvit.ViTTrunk(spec, facet="norm", image_size=128, device=cuda_device)
+    state = _vit_state(f32, 13)
+    f32.load_state_dict(state)
+    bf = tvit.ViTTrunk(spec, facet="norm", image_size=128, device=cuda_device,
+                       dtype=torch.bfloat16)
+    bf.load_state_dict(state)
+    x = torch.rand(4, 3, 128, 128, generator=torch.Generator().manual_seed(2)).to(cuda_device)
+    with torch.inference_mode(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        with profiling.record() as rec:
+            got = bf(x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last))
+        bf_counts = rec.counters()
+        with profiling.record() as rec:
+            want = f32(x)
+        f32_counts = rec.counters()
+    assert got.shape == want.shape == (4, 256, 8, 8) and got.dtype == torch.bfloat16
+    gap = 1.0 - torch.nn.functional.cosine_similarity(got.flatten(1).double(),
+                                                      want.flatten(1).double())
+    assert float(gap.max()) < 2e-4
+    passes = {"rope": 3, "swiglu": 3, "add_norm": 6}
+    assert bf_counts == {f"attn.{tvit.FUSED_ROUTE}": 3, "vit.tokens": 4 * 69,
+                         **{f"vit.{k}.kernel": n for k, n in passes.items()}}
+    assert f32_counts == {"attn.math": 3, "vit.tokens": 4 * 69,
+                          **{f"vit.{k}.plain": n for k, n in passes.items()}}
 
 
 def test_vit_pass_launch_refused_by_the_library_raises(cuda_device):
@@ -1871,4 +1936,8 @@ def test_vit_pass_launch_refused_by_the_library_raises(cuda_device):
                            stream)
     with pytest.raises(RuntimeError, match="invalid argument"):
         tvp._launched(lib, err, "add-norm")
+    t = torch.zeros(2, 1, 12, device=cuda_device)
+    err = lib.vit_rope(x.data_ptr(), t.data_ptr(), 1, 4, 3, 8, 12, index, stream)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        tvp._launched(lib, err, "RoPE")
     torch.cuda.synchronize()

@@ -1,5 +1,6 @@
 """The ViT block's float passes (``ops/cuda/vit_passes.py``) on the CPU: the
-plain versions equal the torch composition they stand for, a trunk that
+plain versions equal the torch composition they stand for (the RoPE
+rotation DINOv3's ``x cos + rotate_half(x) sin``), a trunk that
 runs them gives the map of a trunk that runs its blocks as the port did
 before the fused passes, bit for bit, and the kernels' wrappers refuse what
 the kernels do not take. The kernels themselves are held to the plain
@@ -67,6 +68,8 @@ def _old_forward(trunk: vit.ViTTrunk, x: torch.Tensor) -> torch.Tensor:
     last = trunk.blocks[trunk.layer]
     if trunk.facet == "token":
         y = _old_block(last, t)[:, 1:]
+    elif trunk.facet == "norm":
+        y = trunk.norm(_old_block(last, t))[:, 1:]
     else:
         d, j = trunk.spec.embed_dim, vit.FACETS.index(trunk.facet)
         cols = slice(j * d, (j + 1) * d)
@@ -102,8 +105,9 @@ def test_a_cpu_trunk_gives_the_old_block_composition_bit_for_bit(ffn, facet, dty
     assert got.shape == want.shape == (2, 64, 3, 3) and got.dtype == dtype
     assert torch.equal(got, want)
     # Blocks 0-1 whole: each an ls1 + norm2 and an ls2 + next norm1; the
-    # token facet runs block 2 too, whose ls2 add is the trunk's last.
-    whole = 3 if facet == "token" else 2
+    # token facet runs block 2 too, whose ls2 add is the trunk's last, and
+    # the norm facet block 2 with its ls2 add and the final norm as one.
+    whole = 3 if facet in ("token", "norm") else 2
     counts = {k: v for k, v in rec.counters().items() if k.startswith(("vit.swiglu", "vit.add"))}
     assert counts == {"vit.add_norm.plain": 2 * whole - (facet == "token"),
                       **({"vit.swiglu.plain": whole} if ffn == "swiglu" else {})}
@@ -113,7 +117,25 @@ def _bf16(*shape):
     return torch.zeros(shape, dtype=torch.bfloat16)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_the_plain_rotation_is_dinov3s_rope_in_float32(dtype):
+    g = torch.Generator().manual_seed(3)
+    b, n, prefix, heads, hd = 2, 11, 5, 3, 16
+    qkv = (2.0 * torch.randn(b, n, 3 * heads * hd, generator=g)).to(dtype)
+    angles = 7.0 * torch.rand(n - prefix, hd // 2, generator=g)
+    table = torch.stack([angles.cos(), angles.sin()])
+    before = qkv.clone()
+    assert vit_passes.rope_reference(qkv, table) is qkv
+    x = before[:, prefix:, :2 * heads * hd].float().unflatten(-1, (2 * heads, hd))
+    cos, sin = table[0].tile(2)[:, None], table[1].tile(2)[:, None]
+    rotate_half = torch.cat([-x[..., hd // 2:], x[..., :hd // 2]], dim=-1)
+    want = before.clone()
+    want[:, prefix:, :2 * heads * hd] = (x * cos + rotate_half * sin).flatten(-2).to(dtype)
+    assert torch.equal(qkv, want)
+
+
 _C = (_bf16(64),) * 3  # gamma, weight, bias
+_T = torch.zeros(2, 3, 8)  # a RoPE table: 3 patches, half-heads of 8
 REFUSED = {
     "swiglu-not-contiguous": (lambda: vit_passes.swiglu(_bf16(32, 4).t()), ValueError,
                               "contiguous"),
@@ -134,14 +156,31 @@ REFUSED = {
                                          ValueError, "must be"),
     "add-norm-on-the-cpu": (lambda: vit_passes.add_norm(_bf16(4, 64), _bf16(4, 64), *_C, 1e-6),
                             ValueError, "CUDA"),
+    "rope-float32-qkv": (lambda: vit_passes.rope(torch.zeros(2, 5, 96), _T), TypeError,
+                         "bfloat16"),
+    "rope-float64-table": (lambda: vit_passes.rope(_bf16(2, 5, 96), _T.double()), TypeError,
+                           "float32"),
+    "rope-not-contiguous": (lambda: vit_passes.rope(_bf16(5, 2, 96).transpose(0, 1), _T),
+                            ValueError, "contiguous"),
+    "rope-qkv-not-three-thirds": (lambda: vit_passes.rope(_bf16(2, 5, 95), _T), ValueError,
+                                  "3C"),
+    "rope-table-longer-than-the-tokens": (lambda: vit_passes.rope(_bf16(2, 2, 96), _T),
+                                          ValueError, "P <="),
+    "rope-half-head-not-a-multiple-of-8": (
+        lambda: vit_passes.rope(_bf16(2, 5, 96), torch.zeros(2, 3, 4)), ValueError,
+        "multiple of 8"),
+    "rope-on-the-cpu": (lambda: vit_passes.rope(_bf16(2, 5, 96), _T), ValueError, "CUDA"),
 }
 
 
 @pytest.mark.parametrize("case", list(REFUSED))
 def test_the_kernel_wrappers_refuse_what_the_kernels_do_not_take(case):
     call, error, match = REFUSED[case]
-    launches = vit_passes.swiglu.launches, vit_passes.add_norm.launches
+    def launches():
+        return vit_passes.swiglu.launches, vit_passes.add_norm.launches, vit_passes.rope.launches
+
+    before = launches()
     with pytest.raises(error, match=match):
         call()
-    assert (vit_passes.swiglu.launches, vit_passes.add_norm.launches) == launches
+    assert launches() == before
 
